@@ -6,23 +6,42 @@
 Phases, each printed as one JSON line:
 
   1. card     nvidia-smi name and power limit, torch and CUDA versions
-  2. build    nvcc build of the slot kernels from csrc/, with the
-              -Xptxas -v register/spill lines
+  2. build    nvcc builds of the slot and the packed-row kernels from csrc/
+              (side by side), with the -Xptxas -v register/spill lines
   3. kernels  at dam3d_100k and splash3d_1m (the slot arrays of step 0):
               K1 and K2 against their plain PyTorch versions on the same
               inputs (rho rtol 1e-5 atol 1e-6 per particle; f max-relative
               3e-5 — the reference suite's own tolerances between its paths,
               summation order differs), CUDA-event times, and the bound
-  4. path     run(preset("dam3d_100k"), 200, method="pallas") on the card:
+  4. kernels  at emitters3d@settled (the committed checkpoint of step
+              260,000): K3 and K4 against their plain versions at the same
+              tolerances, times of K3, K4 and of K1, K2 on the slot layout
+              of the same state, their bounds, and the time of the smallest
+              launch; K3 and K4 twice, at the shapes of both packed paths:
+              addressing built on the per-step lattice, and on the skinned
+              lattice of sort_every=4 (wider rows, more multi-block rows)
+  5. path     run(preset("dam3d_100k"), 200, method="pallas") on the card:
               finite state, no cap overflow, mean rho/rho0 of the fluid in
               [0.90, 1.10], max|v| < 500, and each kernel launched exactly
               201 times (200 steps + prime); ms/step and peak memory
-  5. path     the same at splash3d_1m for 20 steps
-  6. determinism  two 20-step dam3d_100k runs give bitwise-equal x
-  7. no_sync  two dam3d_100k steps under torch's sync debug mode "error":
-              a step never waits on the host
-  8. profile  torch.profiler over steps at both sizes: device time per
-              step by kernel, and the device's busy share of the wall time
+  6. path     the same at splash3d_1m for 20 steps
+  7. path     emitters3d@settled, run(..., 200, packed_rows=True): finite
+              state, no cap overflow, max|v| < 3 c0, no particle lost, K3
+              and K4 launched exactly 200 times (no prime at step 260,000)
+              and K1/K2 never
+  8. path     the same with sort_every=4 (address reuse): the same checks,
+              the launch counts its two 100-step dispatches imply, and the
+              audit's violation notes (an exact re-run passes: it is the
+              policy working)
+  9. agreement  20 per-step steps from the checkpoint, packed rows against
+              the slot layout: x within 1e-3 h
+ 10. determinism  two 20-step dam3d_100k runs, and two 200-step packed
+              emitters3d runs, give bitwise-equal x
+ 11. no_sync  two dam3d_100k steps, and one 4-step packed reuse block, under
+              torch's sync debug mode "error": a step never waits on the host
+ 12. profile  torch.profiler over steps at the three sizes, and over one
+              sort_every=4 packed dispatch: device time per step by kernel,
+              operations per step, the device's busy share of the wall time
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
@@ -32,10 +51,13 @@ line.  It imports neither JAX nor `sph_tpu`.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -48,14 +70,31 @@ PEAK_F32_S = 67e12
 # K2: r² (8), max + sqrt + divide, r²·inv_r, h−, max, c_s·t·t·inv_r (3),
 #     max + divide for 1/ρ_j, p_i+p_j, coef_p (3), coef_v (3), and per
 #     component sub, 2 mul, 2 add (15)
-OPS_PER_PAIR = {"slot_density": 13, "slot_force": 41}
+# K3 and K4 repeat K1's and K2's pair arithmetic; K4 takes 1/rho_j (max +
+# divide) once per staged lane, not per pair.  The pairs counted for a bound
+# are those the function needs (a particle against the particles of its +-1
+# cells on the per-step lattice), the same for both layouts of one state;
+# the candidates a kernel's own blocking visits beyond them are printed
+# beside the bound and are not part of it.
+OPS_PER_PAIR = {"slot_density": 13, "slot_force": 41,
+                "packed_density": 13, "packed_force": 39}
 REPLACES = {
     "slot_density": "sph_tpu/pallas_step.py:750 (_density_kernel)",
     "slot_force": "sph_tpu/pallas_step.py:837 (_force_kernel)",
+    "packed_density": "sph_tpu/pallas_step.py:969 (_density_kernel_packed)",
+    "packed_force": "sph_tpu/pallas_step.py:1024 (_force_kernel_packed)",
 }
-SOURCE = "sph_tpu_torch/csrc/slot_kernels.cu"
+SOURCE = {
+    "slot_density": "sph_tpu_torch/csrc/slot_kernels.cu",
+    "slot_force": "sph_tpu_torch/csrc/slot_kernels.cu",
+    "packed_density": "sph_tpu_torch/csrc/packed_kernels.cu",
+    "packed_force": "sph_tpu_torch/csrc/packed_kernels.cu",
+}
 RHO_RTOL, RHO_ATOL, F_REL = 1e-5, 1e-6, 3e-5
 N_TIMED = 20
+# steps each path is driven for
+DEPTH = {"dam3d_100k": 200, "splash3d_1m": 20, "emitters3d@settled": 200}
+SETTLED = Path(__file__).resolve().parent / "bench" / ".settled_emitters3d_full.npz"
 
 
 def emit(obj) -> None:
@@ -92,19 +131,34 @@ def cuda_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
 def phase_build():
     from sph_tpu_torch import _build
 
-    built = _build.build("slot_kernels", force=True)
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "library": built.path.name,
-          "seconds": built.seconds, "ptxas": ptxas})
+    t0 = time.perf_counter()
+    all_built = _build.build_all(force=True)
+    wall = time.perf_counter() - t0
+    for name, built in all_built.items():
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        emit({"phase": "build", "library": built.path.name,
+              "seconds": built.seconds, "wall_seconds_all": wall,
+              "ptxas": ptxas})
 
 
-def slot_inputs(scene, dev):
-    from sph_tpu_torch import init, neighbors, pallas_step as ps
+def reuse_grid(scene, sort_every: int):
+    """The skinned lattice run(..., sort_every=) builds its addressing on."""
+    from sph_tpu_torch import default_skin, neighbors
 
-    state = init(scene, device=dev)
-    grid = neighbors.GridSpec.for_scene(scene)
-    sg = ps.slot_grid(grid)
+    base = neighbors.GridSpec.for_scene(scene)
+    return neighbors.GridSpec.for_scene(
+        scene, cap=base.cap, skin=default_skin(scene, sort_every))
+
+
+def slot_inputs(scene, state, packed: bool = False, grid=None):
+    """(sg, addr, feat) of `state` on `grid` (default: the per-step lattice
+    of `scene`)."""
+    from sph_tpu_torch import neighbors, pallas_step as ps
+
+    if grid is None:
+        grid = neighbors.GridSpec.for_scene(scene)
+    sg = ps.packed_grid(grid) if packed else ps.slot_grid(grid)
     addr = ps.build_addr(state.x, state.active, grid, sg)
     feat = ps.scatter_slots(addr, ps._pack_rows6(state.x, state.v), sg)
     return sg, addr, feat
@@ -122,29 +176,48 @@ def real_pairs(feat, addr, sg) -> int:
     return total
 
 
+def packed_pairs(addr) -> tuple[int, int]:
+    """(pairs K3/K4's blocking visits: each particle of a row against every
+    particle of its R neighbor rows, most of them beyond h and so no part
+    of the bound; the most candidates any one particle has, i.e. the
+    longest loop of a thread)."""
+    cnt = addr.gcounts[:, 0, :].sum(dim=1).long()         # [c_rows], cnt[0] = 0
+    loop = cnt[addr.nbr_pos.long()].sum(dim=0)            # [c_rows]
+    return int((cnt * loop).sum()), int(loop[cnt > 0].max())
+
+
 def bound(name: str, feat, addr, sg, dim: int, pairs: int):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the fp32 rate, from this run's inputs.  Only the
-    occupied rows 1..n_occ are read and written: the gathers read no other
-    row, so the zeros the kernels write past n_occ are not counted."""
-    n_occ = int(addr.n_occ[0])
-    lanes = feat.shape[2]
-    if name == "slot_density":   # read x, write rho and p
-        moved = n_occ * lanes * (dim + 2) * 4
-    else:                        # read x, v, rho and p, write f
-        moved = n_occ * lanes * (2 * dim + 2 + dim) * 4
+    operations over the fp32 rate, from this run's inputs; `pairs` are the
+    pairs the function needs (`real_pairs` on the per-step lattice).  Slot
+    layout:
+    only the occupied rows 1..n_occ are read and written (the gathers read
+    no other row, so the zeros the kernels write past n_occ are not
+    counted).  Packed rows: only the occupied 128-lane blocks."""
+    if sg.packed:
+        n_lanes = int((addr.gcounts > 0).sum()) * 128
+    else:
+        n_lanes = int(addr.n_occ[0]) * feat.shape[2]
+    if name.endswith("density"):  # read x, write rho and p
+        moved = n_lanes * (dim + 2) * 4
+    else:                         # read x, v, rho and p, write f
+        moved = n_lanes * (2 * dim + 2 + dim) * 4
     t_bytes = moved / PEAK_BYTES_S * 1e3
     t_ops = pairs * OPS_PER_PAIR[name] / PEAK_F32_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernels(preset_name: str, dev):
-    """K1 and K2 against their plain versions on the step-0 slot arrays."""
-    from sph_tpu_torch import pallas_step as ps, preset, slot_kernels as sk
+def phase_kernels(preset_name: str, dev, state=None):
+    """K1 and K2 against their plain versions on the slot arrays of `state`
+    (default: the preset's step 0)."""
+    from sph_tpu_torch import init, pallas_step as ps, preset
+    from sph_tpu_torch import slot_kernels as sk
 
-    scene = preset(preset_name)
+    scene = preset(preset_name.split("@")[0])
     params = scene.params
-    sg, addr, feat = slot_inputs(scene, dev)
+    if state is None:
+        state = init(scene, device=dev)
+    sg, addr, feat = slot_inputs(scene, state)
     args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params)
 
     rp_k = sk.slot_density(feat, *args)
@@ -188,14 +261,94 @@ def phase_kernels(preset_name: str, dev):
     return res
 
 
-def phase_path(preset_name: str, n_steps: int, dev):
-    """The port's main path through `run`, with its health checks."""
-    from sph_tpu_torch import init, neighbors, pallas_step as ps, preset, run
-    from sph_tpu_torch import slot_kernels as sk
+def tiny_launch_ms(dev) -> float:
+    """Time per launch of the smallest kernel PyTorch makes (a one-element
+    in-place add), back to back: the floor any launch pays."""
+    t = torch.zeros(1, device=dev)
+    return cuda_ms(lambda: t.add_(1.0), n=200)
 
-    scene = preset(preset_name)
-    grid = neighbors.GridSpec.for_scene(scene)
-    sg = ps.slot_grid(grid)
+
+def phase_kernels_packed(dev, state, scene, grid=None, lattice="per step"):
+    """K3 and K4 against their plain versions per particle, on the packed
+    arrays of the settled emitters3d state built on `grid` (default: the
+    per-step lattice)."""
+    from sph_tpu_torch import neighbors, packed_kernels as pk
+    from sph_tpu_torch import pallas_step as ps
+
+    params, d = scene.params, scene.params.dim
+    if grid is None:
+        grid = neighbors.GridSpec.for_scene(scene)
+    sg, addr, feat = slot_inputs(scene, state, packed=True, grid=grid)
+    jb = ps._jblocks(addr, sg)
+    args = (addr.n_occ, addr.nbr_pos, jb, addr.gcounts, params)
+
+    rp_k = pk.packed_density(feat, *args)
+    rp_p = pk.packed_density_plain(feat, *args)
+    torch.cuda.synchronize()
+    rho_k, ok = ps._gather_rho(rp_k, addr, sg, params)
+    rho_p, _ = ps._gather_rho(rp_p, addr, sg, params)
+    check(bool(torch.allclose(rho_k, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)),
+          f"K3 vs plain at emitters3d@settled, lattice {lattice}")
+    f_k = pk.packed_force(feat, rp_k, *args)
+    f_p = pk.packed_force_plain(feat, rp_k, *args)
+    torch.cuda.synchronize()
+    fk = ps._gather_f(f_k, addr, sg, d, ok)
+    fp = ps._gather_f(f_p, addr, sg, d, ok)
+    f_err = float(torch.max(torch.abs(fk - fp)))
+    f_scale = float(torch.max(torch.abs(fp)))
+    check(f_err / f_scale < F_REL,
+          f"K4 vs plain at emitters3d@settled, lattice {lattice}")
+    check(bool(torch.isfinite(rho_k).all() and torch.isfinite(fk).all()),
+          "finite packed kernel outputs")
+    check(int(ok.sum()) == int(state.n_active()) and int(addr.overflow) == 0,
+          "every active particle has a packed lane")
+
+    visited, longest = packed_pairs(addr)
+    sg_s, addr_s, feat_s = slot_inputs(scene, state)
+    pairs = real_pairs(feat_s, addr_s, sg_s)
+    res = {}
+    for name, kern, plain, err in (
+        ("packed_density", lambda: pk.packed_density(feat, *args),
+         lambda: pk.packed_density_plain(feat, *args),
+         float(torch.max(torch.abs(rho_k - rho_p)))),
+        ("packed_force", lambda: pk.packed_force(feat, rp_k, *args),
+         lambda: pk.packed_force_plain(feat, rp_k, *args), f_err),
+    ):
+        b_ms, b_by = bound(name, feat, addr, sg, d, pairs)
+        res[name] = {
+            "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, n=5, warm=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    emit({"phase": "kernels", "preset": "emitters3d@settled", "layout": "packed",
+          "lattice": lattice, "grid": list(grid.shape), "cell": grid.cell,
+          "c_rows": sg.c_rows, "lanes": sg.lanes, "n_groups": sg.n_groups,
+          "n_occ": int(addr.n_occ[0]), "particles": int(ok.sum()),
+          "jb_max": int(jb.max()), "rows_over_128": int((jb >= 2).sum()),
+          "occupied_blocks": int((addr.gcounts > 0).sum()),
+          "candidate_pairs": pairs, "pairs_visited_in_whole_rows": visited,
+          "most_candidates_of_a_particle": longest,
+          "f_max_rel_err": f_err / f_scale,
+          "tiny_launch_ms": tiny_launch_ms(dev), "kernels": res})
+    return res
+
+
+def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
+               want=None, rho_band=None, vmax_limit: float = 500.0):
+    """One of the port's paths through `run`, with its health checks.
+    `want` maps each kernel to the launches the path must make: a number,
+    or a predicate for a path whose plan depends on its audit."""
+    from sph_tpu_torch import neighbors, pallas_step as ps, run
+    from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
+
+    run_kw = dict(run_kw or {})
+    sort_every = run_kw.get("sort_every", 1)
+    packed = bool(run_kw.get("packed_rows"))
+    # the audit lattice is the one the path builds its addressing on
+    if sort_every > 1:
+        grid = reuse_grid(scene, sort_every)
+    else:
+        grid = neighbors.GridSpec.for_scene(scene)
+    sg = ps.packed_grid(grid) if packed else ps.slot_grid(grid)
     seen = {"overflow": 0, "n_occ": 0}
 
     def audit(st):  # build-time cap overflow of the state a dispatch ends on
@@ -203,19 +356,23 @@ def phase_path(preset_name: str, n_steps: int, dev):
         seen["overflow"] = max(seen["overflow"], int(addr.overflow))
         seen["n_occ"] = int(addr.n_occ[0])
 
-    state = init(scene, device=dev)
     audit(state)
+    n_start = int(state.n_active())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    notes = io.StringIO()
     sk.reset_launches()
+    pk.reset_launches()
     t0 = time.perf_counter()
-    state = run(scene, n_steps, method="pallas", steps_per_dispatch=n_steps,
-                state=state, device=dev)
+    with contextlib.redirect_stderr(notes):
+        state = run(scene, n_steps, method="pallas", state=state, device=dev,
+                    **run_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
+    launches = {**sk.LAUNCHES, **pk.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     audit(state)
+    sys.stderr.write(notes.getvalue())
 
     act = state.active
     fluid = act & (state.kind == 0)
@@ -223,24 +380,61 @@ def phase_path(preset_name: str, n_steps: int, dev):
                  for f in ("x", "v", "acc", "rho", "p"))
     rho_ratio = float(state.rho[fluid].mean()) / scene.params.rest_density
     vmax = float(torch.linalg.vector_norm(state.v[act], dim=1).max())
-    out = {"phase": "path", "preset": preset_name, "steps": n_steps,
-           "particles": int(act.sum()), "ms_per_step": wall / n_steps * 1e3,
+    out = {"phase": "path", "preset": name, "steps": n_steps,
+           "run": {k: v for k, v in run_kw.items()},
+           "particles": int(act.sum()), "particles_at_start": n_start,
+           "ms_per_step": wall / n_steps * 1e3,
            "ms_per_step_note": "host clock over run(), prime included",
            "peak_bytes": peak, "launches": launches,
            "overflow": seen["overflow"], "n_occ": seen["n_occ"],
-           "rho_mean_over_rest": rho_ratio, "max_speed": vmax}
+           "rho_mean_over_rest": rho_ratio, "max_speed": vmax,
+           "audit_notes": notes.getvalue().strip().splitlines(),
+           "final_step": int(state.step)}
     emit(out)
-    check(finite, f"finite state at {preset_name}")
-    check(seen["overflow"] == 0, f"no cap overflow at {preset_name}")
-    check(0.90 <= rho_ratio <= 1.10, f"mean rho/rho0 at {preset_name}")
-    check(vmax < 500.0, f"max|v| < 500 at {preset_name}")
-    for name in launches:
-        check(launches[name] == n_steps + 1,
-              f"{name} launched {launches[name]} times, want {n_steps + 1}")
+    check(finite, f"finite state at {name}")
+    check(seen["overflow"] == 0, f"no cap overflow at {name}")
+    if rho_band is not None:
+        check(rho_band[0] <= rho_ratio <= rho_band[1],
+              f"mean rho/rho0 at {name}")
+    check(vmax < vmax_limit, f"max|v| < {vmax_limit} at {name}")
+    check(int(act.sum()) >= n_start, f"no particle lost at {name}")
+    for kernel, n in (want or {}).items():
+        good = n(launches[kernel]) if callable(n) else launches[kernel] == n
+        check(good, f"{kernel} launched {launches[kernel]} times at {name}")
+    out["state"] = state
     return out
 
 
-def phase_determinism(dev):
+def phase_agreement(dev, state, scene, n_steps: int = 20):
+    """Packed rows against the slot layout from the same state, per step:
+    positions, and the host clock over each run."""
+    from sph_tpu_torch import run
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(scene, n_steps, method="pallas", state=state, device=dev, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / n_steps * 1e3
+
+    # in turns, so that neither layout has the warmer host
+    a, ms_packed = timed(packed_rows=True)
+    b, ms_slot = timed()
+    _, ms_slot2 = timed()
+    _, ms_packed2 = timed(packed_rows=True)
+    act = a.active
+    same_active = bool(torch.equal(act, b.active))
+    dx = float((a.x[act] - b.x[act]).abs().max())
+    emit({"phase": "agreement", "preset": "emitters3d@settled",
+          "steps": n_steps, "max_abs_dx": dx, "limit": 1e-3 * scene.params.h,
+          "same_active": same_active,
+          "ms_per_step_packed": [ms_packed, ms_packed2],
+          "ms_per_step_slot": [ms_slot, ms_slot2]})
+    check(same_active, "packed and slot runs activate the same particles")
+    check(dx < 1e-3 * scene.params.h, "packed vs slot x within 1e-3 h")
+
+
+def phase_determinism(dev, settled, scene_e, first_packed):
     from sph_tpu_torch import init, preset, run
 
     scene = preset("dam3d_100k")
@@ -251,23 +445,24 @@ def phase_determinism(dev):
     emit({"phase": "determinism", "preset": "dam3d_100k", "steps": 20,
           "bitwise_equal_x": same})
     check(same, "two runs from one init give bitwise-equal x")
+    # the packed run of the path phase, once more
+    n_steps = DEPTH["emitters3d@settled"]
+    again = run(scene_e, n_steps, method="pallas", state=settled,
+                packed_rows=True, device=dev)
+    same = bool(torch.equal(again.x, first_packed.x))
+    emit({"phase": "determinism", "preset": "emitters3d@settled",
+          "steps": n_steps, "packed_rows": True, "bitwise_equal_x": same})
+    check(same, "two packed runs from the checkpoint give bitwise-equal x")
 
 
-def phase_no_sync(dev):
-    """Steps enqueue their work without waiting on the host: two steps run
-    under torch's sync debug mode "error", which raises at any call that
-    synchronizes the host with the card (a blocking copy, .item(),
-    nonzero).  One step before it makes the cached device constants."""
-    from sph_tpu_torch import init, make_advance, preset, prime
-
-    scene = preset("dam3d_100k")
-    advance = make_advance(scene, "pallas", steps_per_dispatch=2, device=dev)
-    state = prime(scene, init(scene, device=dev), "pallas", device=dev)
-    state = advance(state)
+def _under_sync_debug(fn, dev):
+    """fn() under torch's sync debug mode "error", which raises at any call
+    that synchronizes the host with the card (a blocking copy, .item(),
+    nonzero); also shows that the mode catches such a copy."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state = advance(state)
+        out = fn()
         try:  # the mode must catch the kind of copy the steps no longer make
             torch.tensor((1.0,), device=dev)
             caught = False
@@ -277,27 +472,68 @@ def phase_no_sync(dev):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     check(caught, "sync debug mode catches a blocking host-to-device copy")
+    return out
+
+
+def phase_no_sync(dev, settled, scene_e):
+    """Steps enqueue their work without waiting on the host.  One dispatch
+    before the checked one makes the cached device constants."""
+    from sph_tpu_torch import init, make_advance, preset, prime
+
+    scene = preset("dam3d_100k")
+    advance = make_advance(scene, "pallas", steps_per_dispatch=2, device=dev)
+    state = prime(scene, init(scene, device=dev), "pallas", device=dev)
+    state = _under_sync_debug(lambda: advance(advance(state)), dev)
     check(bool(torch.isfinite(state.x).all()), "finite state after no-sync steps")
     emit({"phase": "no_sync", "preset": "dam3d_100k", "steps": 2,
           "sync_debug_mode": "error", "host_syncs": 0})
+    # one 4-step address-reuse block on packed rows: the violation count
+    # stays on the device until the caller fetches it
+    reuse = make_advance(scene_e, "pallas", steps_per_dispatch=4,
+                         sort_every=4, packed_rows=True, device=dev)
+    warm, _ = reuse(settled)
+    state, viol = _under_sync_debug(lambda: reuse(warm), dev)
+    check(bool(torch.isfinite(state.x).all()),
+          "finite state after a no-sync reuse block")
+    emit({"phase": "no_sync", "preset": "emitters3d@settled", "steps": 4,
+          "sort_every": 4, "packed_rows": True, "sync_debug_mode": "error",
+          "host_syncs": 0, "violations": int(viol)})
 
 
-def phase_profile(preset_name: str, n_steps: int, dev):
-    """Where a step's device time goes (informational: no check)."""
+def phase_profile(name: str, scene, state, n_steps: int, dev,
+                  sort_every: int = 1, **step_kw):
+    """Where a step's device time goes (informational: no check).  With
+    `sort_every` > 1 the profiled work is one address-reuse dispatch of
+    `n_steps` steps (`make_advance(sort_every=)`), the violation count
+    fetched once at its end as the audited advance does."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sph_tpu_torch import init, make_step, preset, run
+    from sph_tpu_torch import make_advance, make_step, run
 
-    scene = preset(preset_name)
-    state = run(scene, 2, method="pallas", state=init(scene, device=dev),
-                device=dev)
-    step = make_step(scene, "pallas", device=dev)
+    if sort_every > 1:
+        reuse = make_advance(scene, "pallas", steps_per_dispatch=n_steps,
+                             sort_every=sort_every, device=dev, **step_kw)
+
+        def drive(st):
+            st, viol = reuse(st)
+            return st, int(viol)
+
+        state, _ = drive(state)     # warm: the cached device constants
+    else:
+        state = run(scene, 2, method="pallas", state=state, device=dev,
+                    **step_kw)
+        step = make_step(scene, "pallas", device=dev, **step_kw)
+
+        def drive(st):
+            for _ in range(n_steps):
+                st = step(st)
+            return st, 0
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            state = step(state)
+        state, viol = drive(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []  # device-side events only (kernels, memcpy, memset)
@@ -307,7 +543,8 @@ def phase_profile(preset_name: str, n_steps: int, dev):
                          e.count / n_steps, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    emit({"phase": "profile", "preset": preset_name, "steps": n_steps,
+    emit({"phase": "profile", "preset": name, "steps": n_steps,
+          "step": step_kw, "sort_every": sort_every, "violations": viol,
           "wall_ms_per_step_profiled": wall / n_steps * 1e3,
           "device_ms_per_step": busy,
           "device_busy_share": busy / (wall / n_steps * 1e3),
@@ -320,7 +557,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import sph_tpu_torch  # noqa: F401  (without the package: fail before any output)
+    import sph_tpu_torch as sph  # without the package: fail before any output
 
     dev = torch.device("cuda")
     smi = smi_line()
@@ -328,23 +565,87 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0), "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
     phase_build()
+    settled, scene_e = sph.load_checkpoint(str(SETTLED), device=dev)
+    check(int(settled.step) == 260000 and int(settled.n_active()) == 53944,
+          "the settled emitters3d checkpoint is the committed one")
     at = {p: phase_kernels(p, dev) for p in ("dam3d_100k", "splash3d_1m")}
-    main_run = phase_path("dam3d_100k", 200, dev)
-    big_run = phase_path("splash3d_1m", 20, dev)
-    phase_determinism(dev)
-    phase_no_sync(dev)
-    phase_profile("dam3d_100k", 10, dev)
-    phase_profile("splash3d_1m", 5, dev)
+    at["emitters3d@settled"] = {
+        **phase_kernels("emitters3d@settled", dev, settled),
+        **phase_kernels_packed(dev, settled, scene_e),
+    }
+    # the same check at the shapes of the sort_every=4 path
+    at_reuse = phase_kernels_packed(dev, settled, scene_e,
+                                    grid=reuse_grid(scene_e, 4),
+                                    lattice="sort_every=4")
+
+    runs = {}
+    for name in ("dam3d_100k", "splash3d_1m"):
+        scene, n_steps = sph.preset(name), DEPTH[name]
+        runs[name] = phase_path(
+            name, scene, sph.init(scene, device=dev), n_steps, dev,
+            want={"slot_density": n_steps + 1, "slot_force": n_steps + 1,
+                  "packed_density": 0, "packed_force": 0},
+            rho_band=(0.90, 1.10))
+    c0 = scene_e.params.sound_speed
+    n_steps = DEPTH["emitters3d@settled"]
+    runs["packed"] = phase_path(
+        "emitters3d@settled", scene_e, settled, n_steps, dev,
+        run_kw=dict(packed_rows=True),
+        want={"packed_density": n_steps, "packed_force": n_steps,
+              "slot_density": 0, "slot_force": 0},
+        vmax_limit=3.0 * c0)
+
+    # dispatches of (at most) 100 steps; each one that the audit rejects
+    # is re-run per step on the slot layout, i.e. on K1/K2
+    def reran(n: int) -> bool:
+        return n <= n_steps and n % min(n_steps, 100) == 0
+
+    runs["reuse"] = phase_path(
+        "emitters3d@settled", scene_e, settled, n_steps, dev,
+        run_kw=dict(packed_rows=True, sort_every=4),
+        want={"packed_density": n_steps, "packed_force": n_steps,
+              "slot_density": reran, "slot_force": reran},
+        vmax_limit=3.0 * c0)
+    check(runs["reuse"]["launches"]["slot_density"]
+          == runs["reuse"]["launches"]["slot_force"], "K1 and K2 re-run together")
+    check(runs["reuse"]["final_step"] == runs["packed"]["final_step"]
+          == 260000 + n_steps, "every step taken from step 260,000")
+    phase_agreement(dev, settled, scene_e)
+    phase_determinism(dev, settled, scene_e, runs["packed"]["state"])
+    phase_no_sync(dev, settled, scene_e)
+    for name in ("dam3d_100k", "splash3d_1m"):
+        scene = sph.preset(name)
+        phase_profile(name, scene, sph.init(scene, device=dev),
+                      10 if name == "dam3d_100k" else 5, dev)
+    phase_profile("emitters3d@settled", scene_e, settled, 10, dev,
+                  packed_rows=True)
+    phase_profile("emitters3d@settled", scene_e, settled, 10, dev)
+    phase_profile("emitters3d@settled", scene_e, settled, 12, dev,
+                  sort_every=4, packed_rows=True)
 
     kernels = []
     for name in ("slot_density", "slot_force"):
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": main_run["launches"][name],
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": runs["dam3d_100k"]["launches"][name],
             **at["dam3d_100k"][name], "library_ms": None,
             "at_scale": {"preset": "splash3d_1m",
-                         "launches": big_run["launches"][name],
+                         "launches": runs["splash3d_1m"]["launches"][name],
                          **at["splash3d_1m"][name]},
+            "at_settled": {"preset": "emitters3d@settled",
+                           "launches": runs["reuse"]["launches"][name],
+                           **at["emitters3d@settled"][name]},
+        })
+    for name in ("packed_density", "packed_force"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": runs["packed"]["launches"][name],
+            **at["emitters3d@settled"][name], "library_ms": None,
+            "with_reuse": {"lattice": "sort_every=4",
+                           "launches": runs["reuse"]["launches"][name],
+                           **at_reuse[name]},
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -7,9 +7,13 @@ there.  The package imports neither JAX nor `sph_tpu`.  Entry points take
 `device="cpu"` is passed; on CPU tensors the slot kernels run their plain
 PyTorch versions.
 
-This slice covers the per-step path (`method="naive"` and `"pallas"` with
-`sort_every=1`); see ROADMAP.md for what follows.
+Ported so far: `method="naive"`, and `method="pallas"` on the slot layout
+or on packed rows (`packed_rows=True`), per step or with Verlet-skin address
+reuse (`sort_every > 1`); checkpoints and `spawn`.  See ROADMAP.md for what
+follows.
 """
+
+from sph_tpu_torch.diagnostics import load_checkpoint, save_checkpoint
 
 from sph_tpu_torch.params import (
     Block,
@@ -23,8 +27,16 @@ from sph_tpu_torch.params import (
     scene_from_json,
     scene_to_json,
 )
-from sph_tpu_torch.state import State, init
-from sph_tpu_torch.step import make_advance, make_step, prime, run
+from sph_tpu_torch.state import State, init, spawn
+from sph_tpu_torch.step import (
+    default_skin,
+    make_advance,
+    make_audited_advance,
+    make_step,
+    packed_fits,
+    prime,
+    run,
+)
 
 __all__ = [
     "SimParams",
@@ -39,8 +51,14 @@ __all__ = [
     "scene_to_json",
     "State",
     "init",
+    "spawn",
+    "save_checkpoint",
+    "load_checkpoint",
     "make_step",
     "make_advance",
+    "make_audited_advance",
+    "default_skin",
+    "packed_fits",
     "prime",
     "run",
 ]

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -36,6 +37,12 @@ SIGNATURES = {
                          _I, _I, _F, _F, _F, _F, _I, _P),
         "slot_force": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                        _F, _F, _F, _I, _P),
+    },
+    "packed_kernels": {
+        "packed_density": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                           _F, _I, _I, _F, _F, _F, _F, _I, _P),
+        "packed_force": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                         _F, _F, _F, _F, _I, _P),
     },
 }
 
@@ -92,6 +99,13 @@ def build(name: str, force: bool = False) -> Built:
     built = Built(lib=lib, path=out, seconds=seconds, log=log)
     _LOADED[name] = built
     return built
+
+
+def build_all(force: bool = False) -> dict[str, Built]:
+    """Build every library at once, one nvcc process per source."""
+    names = sorted(SIGNATURES)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(lambda n: build(n, force), names)))
 
 
 def library(name: str) -> ctypes.CDLL:

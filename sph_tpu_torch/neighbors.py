@@ -1,8 +1,8 @@
 """Cell-grid geometry and per-particle cell indices (port of the parts of
 `sph_tpu/neighbors.py` that the slot path needs).
 
-The cell size is h, so every pair with r < h lies within ±1 cell on each
-axis.  The XLA grid method itself
+The cell size is h (+ a Verlet skin under address reuse), so every pair
+with r < h lies within ±1 cell on each axis.  The XLA grid method itself
 (`build_tiles`, `grid_rho_p_f`) is not ported yet (ROADMAP.md Queue 1
 item 6).
 """
@@ -27,7 +27,7 @@ class GridSpec:
     """Static grid geometry (hashable)."""
 
     lo: tuple[float, ...]     # grid origin (scene lo minus one-cell margin)
-    cell: float               # cell edge length == support radius h
+    cell: float               # cell edge length: support radius h + skin
     shape: tuple[int, ...]    # cells per axis
     cap: int                  # max particles per cell
     xsub: int = 1             # x-cell subdivision of the slot layout; the
@@ -48,13 +48,17 @@ class GridSpec:
         return self.n_cells + 1
 
     @staticmethod
-    def for_scene(scene: Scene, cap: int | None = None,
+    def for_scene(scene: Scene, cap: int | None = None, skin: float = 0.0,
                   xsub: int = 1) -> "GridSpec":
-        """Cells of edge h over the scene box plus a one-cell margin.  The
-        Verlet-skin widening of the reference (`skin`) comes with
-        `sort_every` (ROADMAP.md Queue 1 item 8)."""
+        """Cells of edge h + skin over the scene box plus a one-cell margin.
+
+        `skin` > 0 widens the cells (pseudo-Verlet): a neighbor structure
+        built from positions at time t0 stays a correct superset of all
+        r < h pairs while every particle has moved less than skin/2 since
+        t0 — the basis of `sort_every` address reuse (`step.make_advance`).
+        Compact support keeps results exact regardless of cell size."""
         p = scene.params
-        cell = float(p.h)
+        cell = float(p.h) + float(skin)
         spacing = scene.spacing or p.h * 0.55
         lo = tuple(float(l) - cell for l in scene.lo)
         hi = tuple(float(h) + cell for h in scene.hi)

@@ -1,4 +1,4 @@
-"""The slot-layout density + force pass (port of the per-step path of
+"""The slot-layout and packed-row density + force pass (port of
 `sph_tpu/pallas_step.py`).
 
 Layout, kept from the reference so per-particle results compare one to one:
@@ -22,6 +22,14 @@ Layout, kept from the reference so per-particle results compare one to one:
      run their plain PyTorch versions.
   4. Per-particle values are element-gathered back from the slot arrays.
 
+The packed-row layout (`packed_grid`, `SlotGrid.packed`) is the sparse-scene
+variant: a row's particles fill lanes 0..count-1 in stable rank order, there
+are no per-cell slots and no x halo, and the kernels (K3, K4:
+`packed_kernels.py`, `csrc/packed_kernels.cu`) pair each particle with every
+particle of the 3^(D-1) neighbor rows; compact support annihilates the
+far-x pairs.  Row compaction, the dummy row, the scatter and the gathers
+are shared with the slot layout.
+
 All index work stays on the device with no host sync: the kernels read
 `n_occ` from device memory.  Where JAX drops out-of-range scatter indices
 (`mode="drop"`) or pads `nonzero`, this module writes such entries to one
@@ -38,7 +46,7 @@ from dataclasses import dataclass
 
 import torch
 
-from sph_tpu_torch import physics, slot_kernels
+from sph_tpu_torch import packed_kernels, physics, slot_kernels
 from sph_tpu_torch.neighbors import GridSpec, cell_index
 from sph_tpu_torch.params import SimParams
 from sph_tpu_torch.platform import device_const
@@ -61,6 +69,11 @@ class SlotGrid:
     inner: tuple[int, ...]   # GridSpec.shape
     cap: int                 # slot-cell capacity; must divide 128
     c_rows: int              # compacted-row capacity incl. dummy row 0
+    packed: bool = False     # packed-row layout: a row's particles occupy
+    #                          lanes 0..count-1 (pos = within-row rank)
+    row_lanes: int = 0       # packed: static per-row particle capacity
+    #                          (multiple of 128); overflow is audited like
+    #                          the cell cap
 
     @property
     def dim(self) -> int:
@@ -84,10 +97,14 @@ class SlotGrid:
 
     @property
     def n_groups(self) -> int:
+        if self.packed:
+            return self.row_lanes // LANE
         return self.h2 // self.xc
 
     @property
     def lanes(self) -> int:
+        if self.packed:
+            return self.row_lanes
         return self.h2 * self.cap
 
     @property
@@ -97,6 +114,15 @@ class SlotGrid:
         return tuple((dz, dy) for dz in (-1, 0, 1) for dy in (-1, 0, 1))
 
 
+def _c_rows(grid: GridSpec, c_rows: int | None) -> int:
+    dim = len(grid.shape)
+    inner_rows = (grid.shape[0] + 2 if dim == 3 else 1) * (grid.shape[-2] + 2)
+    if c_rows is None:
+        # always-correct when the row space is small; else a documented cap
+        c_rows = inner_rows if inner_rows <= 4096 else 4096
+    return min(c_rows, inner_rows) + 1  # +1: reserved dummy row 0
+
+
 def slot_grid(grid: GridSpec, c_rows: int | None = None) -> SlotGrid:
     if grid.xsub != 1:
         raise NotImplementedError(
@@ -104,13 +130,27 @@ def slot_grid(grid: GridSpec, c_rows: int | None = None) -> SlotGrid:
         )
     if LANE % grid.cap != 0:
         raise ValueError(f"the slot path needs cap | 128, got {grid.cap}")
-    dim = len(grid.shape)
-    inner_rows = (grid.shape[0] + 2 if dim == 3 else 1) * (grid.shape[-2] + 2)
-    if c_rows is None:
-        # always-correct when the row space is small; else a documented cap
-        c_rows = inner_rows if inner_rows <= 4096 else 4096
-    c_rows = min(c_rows, inner_rows) + 1  # +1: reserved dummy row 0
-    return SlotGrid(inner=grid.shape, cap=grid.cap, c_rows=c_rows)
+    return SlotGrid(inner=grid.shape, cap=grid.cap,
+                    c_rows=_c_rows(grid, c_rows))
+
+
+def packed_grid(grid: GridSpec, row_lanes: int | None = None,
+                c_rows: int | None = None) -> SlotGrid:
+    """Packed-row SlotGrid (see SlotGrid.packed).  `row_lanes` is the static
+    per-row particle capacity (rounded up to 128); the default sizes it at
+    half a full row of the slot cap, and overflow is audited exactly like
+    the cell cap."""
+    if grid.xsub != 1:
+        raise ValueError("packed rows do not compose with xsub")
+    if row_lanes is None:
+        row_lanes = max(256, grid.cap * grid.shape[-1] // 2)
+    return SlotGrid(
+        inner=grid.shape,
+        cap=grid.cap,     # kept for GridSpec parity/audit surfaces only
+        c_rows=_c_rows(grid, c_rows),
+        packed=True,
+        row_lanes=_round_up(row_lanes, LANE),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -141,12 +181,15 @@ def _pack_rows6(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class SlotAddr:
-    """Per-particle slot addressing + row compaction, built once per step.
+    """Per-particle slot addressing + row compaction, built once per step
+    (or once per `sort_every` block: positions may then go stale by up to
+    skin/2, see GridSpec.for_scene).
     Every field is equal, element for element, to the reference's
     (`sph_tpu.pallas_step.SlotAddr`; its `center` field serves only the
     bf16 features, which are not ported)."""
 
     pos: torch.Tensor        # [N] i32 lane position hx·cap + rank
+    #   (packed rows: the stable rank within the (z, y) row)
     valid: torch.Tensor      # [N] bool in a real cell and within cap
     row_pos: torch.Tensor    # [N] i32 compacted row of the particle's (z, y)
     #   row; 0 (= the dummy row) iff the row was dropped by the c_rows cap
@@ -172,17 +215,27 @@ def build_addr(x: torch.Tensor, active: torch.Tensor, grid: GridSpec,
     in_cell = flat < grid.n_cells
     h0 = (ci[:, 0] + 1) if sg.dim == 3 else torch.zeros(n, dtype=i32, device=dev)
     h1 = ci[:, -2] + 1
-    hx = ci[:, -1] + sg.xc                     # one-group x halo
-    n_hrows = sg.h0 * sg.h1 * sg.h2
-    hrow = (h0 * sg.h1 + h1) * sg.h2 + hx
-    hrow = torch.where(in_cell, hrow, n_hrows)
-    rank = cell_ranks(hrow, n_hrows + 1)
-    valid = in_cell & (rank < sg.cap)
-    pos = hx * sg.cap + rank
-    gx = hx // sg.xc
-
     code = h0 * sg.h1 + h1                     # (z, y) row code, interior
     n_codes = sg.h0 * sg.h1
+    if sg.packed:
+        # pos = stable rank within the (z, y) row: a row's particles fill
+        # lanes 0..count-1, so per-group occupancy is a prefix.  A particle
+        # past row_lanes is not valid; the clamp only keeps its group index
+        # in range (it adds nothing to gcounts).
+        rank = cell_ranks(torch.where(in_cell, code, n_codes), n_codes + 1)
+        valid = in_cell & (rank < sg.lanes)
+        pos = rank
+        gx = torch.clamp(rank, max=sg.lanes - 1) // LANE
+    else:
+        hx = ci[:, -1] + sg.xc                 # one-group x halo
+        n_hrows = sg.h0 * sg.h1 * sg.h2
+        hrow = code * sg.h2 + hx
+        hrow = torch.where(in_cell, hrow, n_hrows)
+        rank = cell_ranks(hrow, n_hrows + 1)
+        valid = in_cell & (rank < sg.cap)
+        pos = hx * sg.cap + rank
+        gx = hx // sg.xc
+
     row_occ = torch.zeros(n_codes + 1, dtype=i32, device=dev)
     row_occ.index_add_(
         0, torch.where(valid, code, n_codes).long(),
@@ -281,19 +334,41 @@ def slot_overflow(x, active, grid: GridSpec, sg: SlotGrid):
 
 
 # ---------------------------------------------------------------------------
-# Kernel dispatch (K1, K2)
+# Kernel dispatch (K1, K2; K3, K4 for packed rows)
 # ---------------------------------------------------------------------------
 
 
-def _call_density(feat, addr: SlotAddr, sg: SlotGrid, params: SimParams):
-    """→ rp_slot [c_rows, 2, lanes] lane-major (rho, EOS p)."""
+def _jblocks(addr: SlotAddr, sg: SlotGrid) -> torch.Tensor:
+    """[c_rows] i32 occupied-128-block count per compacted row (a prefix
+    count: packed lanes fill contiguously), so the packed kernels visit
+    only the occupied blocks of a neighbor row."""
+    return torch.sum(addr.gcounts[:, 0, :] > 0, dim=-1, dtype=torch.int32)
+
+
+def _call_density(feat, addr: SlotAddr, sg: SlotGrid, params: SimParams,
+                  jb=None):
+    """→ rp_slot [c_rows, 2, lanes] lane-major (rho, EOS p).  `jb` is the
+    packed layout's `_jblocks(addr, sg)`, when the caller already has it."""
+    if sg.packed:
+        if jb is None:
+            jb = _jblocks(addr, sg)
+        return packed_kernels.packed_density(
+            feat, addr.n_occ, addr.nbr_pos, jb, addr.gcounts, params
+        )
     return slot_kernels.slot_density(
         feat, addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params
     )
 
 
-def _call_force(feat, rp, addr: SlotAddr, sg: SlotGrid, params: SimParams):
+def _call_force(feat, rp, addr: SlotAddr, sg: SlotGrid, params: SimParams,
+                jb=None):
     """→ f_slot [c_rows, FOUT, lanes] lane-major (components >= D zero)."""
+    if sg.packed:
+        if jb is None:
+            jb = _jblocks(addr, sg)
+        return packed_kernels.packed_force(
+            feat, rp, addr.n_occ, addr.nbr_pos, jb, addr.gcounts, params
+        )
     return slot_kernels.slot_force(
         feat, rp, addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params
     )
@@ -331,14 +406,28 @@ def pallas_rho_p_f(
     params: SimParams,
     grid: GridSpec,
     c_rows: int | None = None,
+    addr: SlotAddr | None = None,
+    packed_rows: bool = False,
+    row_lanes: int | None = None,
 ):
-    """Per-particle (rho, p, f) through the slot kernels."""
+    """Per-particle (rho, p, f) through the slot kernels.
+
+    `addr` (a SlotAddr from build_addr) reuses a neighbor structure built at
+    an earlier step — valid while every particle has moved < skin/2 since it
+    was built (GridSpec.for_scene skin; step.make_advance sort_every).
+    `packed_rows` selects the packed-row layout (the addr must then come
+    from a packed build too)."""
     d = x.shape[1]
-    sg = slot_grid(grid, c_rows)
-    addr = build_addr(x, active, grid, sg)
+    if packed_rows:
+        sg = packed_grid(grid, row_lanes, c_rows)
+    else:
+        sg = slot_grid(grid, c_rows)
+    if addr is None:
+        addr = build_addr(x, active, grid, sg)
     feat = scatter_slots(addr, _pack_rows6(x, v), sg)
-    rp_slot = _call_density(feat, addr, sg, params)
-    f_slot = _call_force(feat, rp_slot, addr, sg, params)
+    jb = _jblocks(addr, sg) if sg.packed else None   # once for K3 and K4
+    rp_slot = _call_density(feat, addr, sg, params, jb)
+    f_slot = _call_force(feat, rp_slot, addr, sg, params, jb)
     rho, ok = _gather_rho(rp_slot, addr, sg, params)
     p = physics.eos_pressure(rho, params)
     f = _gather_f(f_slot, addr, sg, d, ok)

@@ -53,7 +53,20 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _check(feat, n_occ, nbr_pos, gcounts, cap, extra=()):
+def _eos_args(params: SimParams) -> tuple:
+    """The EOS as the kernels take it: (tait, floor_p, stiffness, rest, b,
+    gamma), the floats rounded to fp32."""
+    tait = params.eos == "tait"
+    if not tait and params.eos != "ideal":
+        raise ValueError(f"unknown eos {params.eos!r}")
+    b = params.sound_speed**2 * params.rest_density / params.tait_gamma
+    return (int(tait), int(params.pressure_floor), _f32(params.stiffness),
+            _f32(params.rest_density), _f32(b), _f32(params.tait_gamma))
+
+
+def _check(feat, n_occ, nbr_pos, gcounts, cap, extra=(), min_groups=3):
+    """Raise on arrays the kernels do not take.  `min_groups` is 3 for the
+    slot layout (two x-halo groups and at least one interior group)."""
     dev = feat.device
     for name, t, dtype in (("feat", feat, torch.float32),
                            ("n_occ", n_occ, torch.int32),
@@ -70,7 +83,7 @@ def _check(feat, n_occ, nbr_pos, gcounts, cap, extra=()):
     if (n_feat != FEAT or LANE % cap or lanes != n_groups * LANE
             or gcounts.shape != (c_rows, 1, n_groups)
             or nbr_pos.shape[1] != c_rows or n_occ.shape != (1,)
-            or n_groups < 3 or c_rows > 65535):
+            or n_groups < min_groups or c_rows > 65535):
         raise ValueError(
             f"inconsistent slot arrays: feat {tuple(feat.shape)}, gcounts "
             f"{tuple(gcounts.shape)}, nbr_pos {tuple(nbr_pos.shape)}, cap {cap}"
@@ -188,18 +201,14 @@ def slot_density(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams):
     lib = _build.library("slot_kernels")
     c_rows, _, lanes = feat.shape
     c_p, _, _ = kernel_constants(params.dim, params.h, params.kernel_norm)
-    tait = params.eos == "tait"
-    if not tait and params.eos != "ideal":
-        raise ValueError(f"unknown eos {params.eos!r}")
-    b = params.sound_speed**2 * params.rest_density / params.tait_gamma
+    eos = _eos_args(params)
     rp = torch.empty((c_rows, 2, lanes), dtype=torch.float32, device=feat.device)
     rc = lib.slot_density(
         feat.data_ptr(), nbr_pos.data_ptr(), gcounts.data_ptr(),
         n_occ.data_ptr(), rp.data_ptr(), c_rows, lanes, gcounts.shape[-1],
         cap, nbr_pos.shape[0], params.dim, _f32(params.h * params.h),
-        _f32(params.mass * c_p), int(tait), int(params.pressure_floor),
-        _f32(params.stiffness), _f32(params.rest_density), _f32(b),
-        _f32(params.tait_gamma), feat.device.index or 0, _stream(feat.device),
+        _f32(params.mass * c_p), *eos, feat.device.index or 0,
+        _stream(feat.device),
     )
     _raise_on(rc, "slot_density")
     LAUNCHES["slot_density"] += 1

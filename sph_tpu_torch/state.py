@@ -6,7 +6,8 @@ changes no shapes and needs no host sync.  Inactive slots are parked far
 outside the domain and masked out of all pair sums.
 
 Seeding runs on the host with `numpy.random.default_rng(scene.seed)`, exactly
-as the reference does, so `init` is bitwise equal to `sph_tpu.init`.
+as the reference does, so `init` is bitwise equal to `sph_tpu.init`, and
+`spawn` (live injection into never-activating slots) to `sph_tpu.spawn`.
 """
 
 from __future__ import annotations
@@ -110,6 +111,90 @@ def park_position(scene: Scene) -> np.ndarray:
     """Where inactive slots sit: far outside the domain (never a neighbor)."""
     lo = np.asarray(scene.lo, np.float32)
     return lo - np.float32(1e6)
+
+
+def spawn(
+    state: State, scene: Scene, pos, n: int = 64,
+    velocity=None, radius: float | None = None, seed: int = 0,
+) -> tuple[State, int]:
+    """Live particle injection: claim up to `n` never-activating slots
+    (emit_step == INACTIVE: capacity padding or expired emitter events) and
+    schedule them to activate at the NEXT step, lattice-packed (+ scene
+    jitter) inside a disc/sphere of `radius` around `pos` with initial
+    `velocity`.
+
+    Data surgery on the fixed-capacity state: no shape changes, and
+    activation is `emit_step <= step`, evaluated inside the step.  The
+    lattice is laid out on the host with the reference's numpy, so the
+    result is bitwise equal to `sph_tpu.spawn`'s; reading `emit_step` back
+    waits for the device once.
+
+    Returns (state, n_spawned); n_spawned < n when free capacity, the
+    packing disc, or the in-bounds clip runs out.  Spawned slots are fluid
+    (kind 0) at rest density.
+    """
+    p = scene.params
+    d = state.dim
+    spacing = scene.spacing or p.h * 0.55
+    pos = np.asarray(pos, np.float64)
+    if pos.shape != (d,):
+        raise ValueError(f"spawn pos must have dim {d}, got {pos.shape}")
+    if radius is None:
+        # disc/sphere just big enough to lattice-pack n at `spacing`
+        vol_unit = np.pi if d == 2 else 4.0 / 3.0 * np.pi
+        radius = spacing * (n / vol_unit) ** (1.0 / d) + spacing
+
+    emit_host = state.emit_step.detach().cpu().numpy()
+    free = np.flatnonzero(emit_host == INACTIVE)
+    if n <= 0 or len(free) == 0:
+        return state, 0
+
+    # centered lattice clipped to the disc and to the domain interior;
+    # bounded by what n needs (+ margin for disc/bounds clipping) so a
+    # huge radius cannot allocate a huge meshgrid
+    half_n = int(np.ceil(n ** (1.0 / d) / 2.0)) + 2
+    half = min(int(np.ceil(radius / spacing)), max(half_n, 2))
+    ax = (np.arange(-half, half + 1, dtype=np.float64)) * spacing
+    pts = np.stack(
+        np.meshgrid(*([ax] * d), indexing="ij"), axis=-1
+    ).reshape(-1, d)
+    pts = pts[np.argsort(np.sum(pts * pts, axis=1), kind="stable")]
+    pts = pts[np.sum(pts * pts, axis=1) <= radius * radius] + pos[None, :]
+    rng = np.random.default_rng(seed)
+    pts = pts + (rng.random(pts.shape) - 0.5) * (scene.jitter * spacing)
+    lo = np.asarray(scene.lo, np.float64) + 0.5 * spacing
+    hi = np.asarray(scene.hi, np.float64) - 0.5 * spacing
+    inb = np.all((pts >= lo) & (pts <= hi), axis=1)
+    pts = pts[inb]
+
+    k = int(min(n, len(pts), len(free)))
+    if k == 0:
+        return state, 0
+    vel = np.zeros((d,), np.float32)
+    if velocity is not None:
+        vel = np.asarray(velocity, np.float32)
+        if vel.shape != (d,):
+            raise ValueError(
+                f"spawn velocity must have dim {d}, got {vel.shape}"
+            )
+    dev = state.device
+    idx = torch.from_numpy(free[:k]).to(dev)
+
+    def put(t: torch.Tensor, values) -> torch.Tensor:
+        out = t.clone()
+        out[idx] = values
+        return out
+
+    return State(
+        x=put(state.x, torch.from_numpy(pts[:k].astype(np.float32)).to(dev)),
+        v=put(state.v, torch.from_numpy(vel).to(dev)),
+        acc=put(state.acc, 0.0),
+        rho=put(state.rho, float(np.float32(p.rest_density))),
+        p=put(state.p, 0.0),
+        kind=put(state.kind, 0),
+        emit_step=put(state.emit_step, state.step + 1),
+        step=state.step,
+    ), k
 
 
 def _init_host(scene: Scene, capacity_multiple: int) -> dict[str, np.ndarray]:

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import sph_tpu_torch as port
-from sph_tpu_torch import neighbors, slot_kernels
+from sph_tpu_torch import neighbors, packed_kernels, slot_kernels
 from sph_tpu_torch import pallas_step as ps
 
 torch.set_num_threads(1)
@@ -92,5 +92,111 @@ def test_run_on_card_goes_through_the_kernels():
     assert slot_kernels.LAUNCHES == {"slot_density": 10, "slot_force": 10}
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.run(scene, 10, method="pallas", device="cpu")
+    xs = host.x.abs().max()
+    assert float((state.x.cpu() - host.x).abs().max() / xs) < 1e-4
+
+
+def _packed_slots(dim, row_lanes, kw, dev, seed=53):
+    """A cloud in a narrow tall box: rows hold several hundred particles,
+    so neighbor rows span more than one 128-lane block."""
+    rng = np.random.default_rng(seed)
+    n = 1500 if dim == 2 else 6000
+    hi = (48.0, 400.0) if dim == 2 else (48.0, 64.0, 400.0)
+    x = rng.uniform(-5.0, 1.0, (n, dim)).astype(np.float32)
+    x = (x + 5.0) / 6.0 * (np.asarray(hi, np.float32) + 10.0) - 5.0
+    v = rng.uniform(-5.0, 5.0, (n, dim)).astype(np.float32)
+    active = np.ones(n, bool)
+    active[-n // 10:] = False
+    params = port.SimParams(dim=dim, gravity=(0.0,) * dim, **kw)
+    scene = port.Scene(params=params, lo=(0.0,) * dim, hi=hi)
+    grid = neighbors.GridSpec.for_scene(scene, cap=64)
+    sg = ps.packed_grid(grid, row_lanes)
+    xt, vt, at = (torch.from_numpy(a).to(dev) for a in (x, v, active))
+    addr = ps.build_addr(xt, at, grid, sg)
+    feat = ps.scatter_slots(addr, ps._pack_rows6(xt, vt), sg)
+    return params, sg, addr, feat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dim,row_lanes,kw",
+    [(2, 512, {}), (2, 128, dict(pressure_floor=True)),
+     (3, 640, dict(eos="tait", kernel_norm="proper")), (3, 256, {})],
+    ids=["2d-512", "2d-128-overflow-floor", "3d-640-tait", "3d-256-overflow"],
+)
+def test_packed_kernels_match_plain_versions(dim, row_lanes, kw):
+    """Raw rp / f of K3 / K4 against the plain versions, zeros included."""
+    params, sg, addr, feat = _packed_slots(dim, row_lanes, kw, _card())
+    jb = ps._jblocks(addr, sg)
+    assert int(jb.max()) >= 2 or row_lanes == 128
+    assert (int(addr.overflow) > 0) == (row_lanes in (128, 256))
+    args = (addr.n_occ, addr.nbr_pos, jb, addr.gcounts, params)
+    before = dict(packed_kernels.LAUNCHES)
+    rp = packed_kernels.packed_density(feat, *args)
+    rp_p = packed_kernels.packed_density_plain(feat, *args)
+    f = packed_kernels.packed_force(feat, rp, *args)
+    f_p = packed_kernels.packed_force_plain(feat, rp, *args)
+    torch.cuda.synchronize()
+    assert packed_kernels.LAUNCHES["packed_density"] == before["packed_density"] + 1
+    assert packed_kernels.LAUNCHES["packed_force"] == before["packed_force"] + 1
+
+    assert torch.allclose(rp[:, 0], rp_p[:, 0], rtol=RHO_RTOL, atol=RHO_ATOL)
+    rho = rp_p[:, 0].double()
+    if params.eos == "ideal":
+        slope = torch.full_like(rho, params.stiffness)
+    else:
+        b = params.sound_speed**2 * params.rest_density / params.tait_gamma
+        slope = (b * params.tait_gamma / params.rest_density
+                 * (rho / params.rest_density) ** (params.tait_gamma - 1))
+    tol = 2.0 * slope * (RHO_ATOL + RHO_RTOL * rho.abs()) + 1e-6 * rp_p[:, 1].abs()
+    assert bool(((rp[:, 1] - rp_p[:, 1]).abs() <= tol).all())
+    scale = float(f_p.abs().max())
+    assert scale > 0
+    assert float((f - f_p).abs().max()) / scale < FTOL
+    # exact zeros wherever the plain version has none to compute
+    empty = feat[:, 0] >= 1e17
+    assert not rp[:, 0][empty].any() and not rp[:, 1][empty].any()
+    assert not f[:, 0][empty].any() and not f[:, dim:].any()
+    # run to run, the kernels give the same bits (fixed order, no atomics)
+    assert torch.equal(packed_kernels.packed_density(feat, *args), rp)
+    assert torch.equal(packed_kernels.packed_force(feat, rp, *args), f)
+
+
+@pytest.mark.gpu
+def test_packed_kernels_on_an_empty_scene():
+    """n_occ == 0: zeros and nothing else."""
+    dev = _card()
+    params, sg, addr, feat = _packed_slots(2, 256, {}, dev)
+    none = torch.zeros(1500, dtype=torch.bool, device=dev)
+    scene = port.Scene(params=params, lo=(0.0, 0.0), hi=(48.0, 400.0))
+    grid = neighbors.GridSpec.for_scene(scene, cap=64)
+    addr = ps.build_addr(torch.zeros((1500, 2), device=dev), none, grid, sg)
+    feat = ps.scatter_slots(addr, torch.zeros((1500, 6), device=dev), sg)
+    jb = ps._jblocks(addr, sg)
+    rp = packed_kernels.packed_density(feat, addr.n_occ, addr.nbr_pos, jb,
+                                       addr.gcounts, params)
+    f = packed_kernels.packed_force(feat, rp, addr.n_occ, addr.nbr_pos, jb,
+                                    addr.gcounts, params)
+    torch.cuda.synchronize()
+    assert int(addr.n_occ[0]) == 0 and not rp.any() and not f.any()
+
+
+@pytest.mark.gpu
+def test_packed_run_on_card_goes_through_the_packed_kernels():
+    dev = _card()
+    scene = port.preset("dam2d_10k")
+    slot_kernels.reset_launches()
+    packed_kernels.reset_launches()
+    state = port.run(scene, 8, method="pallas", packed_rows=True, sort_every=4,
+                     steps_per_dispatch=8, device=dev)
+    torch.cuda.synchronize()
+    # a leapfrog scene's prime at step 0 runs on the slot layout, as in the
+    # reference; this Euler scene has none
+    primes = int(scene.params.integrator == "leapfrog")
+    assert slot_kernels.LAUNCHES == {"slot_density": primes, "slot_force": primes}
+    assert packed_kernels.LAUNCHES == {"packed_density": 8, "packed_force": 8}
+    assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
+    host = port.run(scene, 8, method="pallas", packed_rows=True, sort_every=4,
+                    steps_per_dispatch=8, device="cpu")
     xs = host.x.abs().max()
     assert float((state.x.cpu() - host.x).abs().max() / xs) < 1e-4

@@ -1,7 +1,7 @@
 """Rules of the port: `sph_tpu_torch` imports neither JAX nor `sph_tpu`,
 entry points never fall back to the CPU on their own, CPU tensors never
 count as kernel launches, non-CPU tensors never take the plain version,
-and options outside this slice raise NotImplementedError."""
+and options the port does not have yet raise NotImplementedError."""
 
 import subprocess
 import sys
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import sph_tpu_torch as port
-from sph_tpu_torch import _build, platform, slot_kernels
+from sph_tpu_torch import _build, packed_kernels, platform, slot_kernels
 from sph_tpu_torch import pallas_step as tps
 from sph_tpu_torch.neighbors import GridSpec
 
@@ -31,7 +31,11 @@ def test_import_pulls_in_neither_jax_nor_sph_tpu():
     code = (
         "import sys, sph_tpu_torch, sph_tpu_torch.step, "
         "sph_tpu_torch.pallas_step, sph_tpu_torch.slot_kernels, "
+        "sph_tpu_torch.packed_kernels, sph_tpu_torch.diagnostics, "
         "sph_tpu_torch._build\n"
+        "import pkgutil\n"
+        "for m in pkgutil.iter_modules(sph_tpu_torch.__path__):\n"
+        "    __import__('sph_tpu_torch.' + m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'sph_tpu' or m.startswith('sph_tpu.'))\n"
         "print(bad)\n"
@@ -64,6 +68,11 @@ def test_cpu_run_leaves_launch_counts_at_zero():
     state = port.run(_scene(), 3, method="pallas", device="cpu")
     assert int(state.step) == 3
     assert slot_kernels.LAUNCHES == {"slot_density": 0, "slot_force": 0}
+    packed_kernels.reset_launches()
+    state = port.run(_scene(), 4, method="pallas", packed_rows=True,
+                     sort_every=2, state=state, device="cpu")
+    assert int(state.step) == 7
+    assert packed_kernels.LAUNCHES == {"packed_density": 0, "packed_force": 0}
 
 
 def test_steps_make_no_tensors_from_host_values(monkeypatch):
@@ -106,6 +115,16 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, tmp_path):
         slot_kernels.slot_force(feat, torch.empty((3, 2, 384), device=m),
                                 n_occ, nbr, gc, 16, p)
     assert slot_kernels.LAUNCHES == {"slot_density": 0, "slot_force": 0}
+    packed_kernels.reset_launches()
+    feat = torch.empty((3, 8, 256), device=m)
+    jb = torch.empty((3,), dtype=torch.int32, device=m)
+    gc = torch.empty((3, 1, 2), dtype=torch.int32, device=m)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        packed_kernels.packed_density(feat, n_occ, nbr, jb, gc, p)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        packed_kernels.packed_force(feat, torch.empty((3, 2, 256), device=m),
+                                    n_occ, nbr, jb, gc, p)
+    assert packed_kernels.LAUNCHES == {"packed_density": 0, "packed_force": 0}
 
 
 def test_wrappers_reject_malformed_slot_arrays():
@@ -124,14 +143,18 @@ def test_wrappers_reject_malformed_slot_arrays():
 
 
 OUT_OF_SLICE = {
-    "sort_every": lambda s: port.run(s, 4, "pallas", sort_every=4, device="cpu"),
+    "resident_packed": lambda s: port.run(s, 4, "pallas", sort_every=4,
+                                          slot_resident=True,
+                                          packed_rows=True, device="cpu"),
     "slot_resident": lambda s: port.run(s, 4, "pallas", slot_resident=True,
                                         device="cpu"),
     "adaptive_cap": lambda s: port.run(s, 4, "pallas", adaptive_cap=True,
                                        device="cpu"),
     "shards": lambda s: port.run(s, 4, "pallas", shards=2, device="cpu"),
-    "packed_rows": lambda s: port.run(s, 4, "pallas", packed_rows=True,
-                                      device="cpu"),
+    "repair_k": lambda s: port.run(s, 4, "pallas", sort_every=4, repair_k=64,
+                                   device="cpu"),
+    "audited_resident": lambda s: port.make_audited_advance(
+        s, "pallas", 8, sort_every=4, slot_resident=True, device="cpu"),
     "row_pair": lambda s: port.make_step(s, "pallas", row_pair=True,
                                          device="cpu"),
     "xsub": lambda s: port.make_advance(s, "pallas", xsub=2, device="cpu"),
