@@ -42,6 +42,29 @@ Phases, each printed as one JSON line:
  12. profile  torch.profiler over steps at the three sizes, and over one
               sort_every=4 packed dispatch: device time per step by kernel,
               operations per step, the device's busy share of the wall time
+ 13. kernels  K5 at dam3d_100k and splash3d_1m on the step-0 slot addressing
+              with the resident path's 7 scatter columns: K5 against its
+              plain version and scatter_slots(staged=True) against the
+              direct scatter, both bitwise; times of K5, its plain version,
+              PyTorch's own transpose copy, and the whole staged and direct
+              scatters; the bound.  Then the path of K5's entry point:
+              scatter_slots(staged=True) once at each size, one launch each
+ 14. path     the production default, run(scene, n, method="pallas",
+              sort_every=4, slot_resident=True), from init at dam3d_100k
+              (200 steps) and splash3d_1m (20 steps, repair_k resolving to
+              2048), with the health checks of phases 5-6, the policy's
+              counters (healed, repaired, rebuilds, mode), the host fetches
+              per block, and K1/K2 launched 1 + steps + 4 per healed block
+ 15. path     the same from the settled emitters3d checkpoint (200 steps,
+              packed_rows=None): the packed auto policy's verdict, checked
+              against packed_fits on the same state, and the launches it
+              implies; then pinned packed rows (packed_rows=True) resident
+ 16. agreement  20 resident4auto steps against 20 non-resident reuse steps
+              at dam3d_100k with repair_k=0: x within 1e-3 h
+ 17. determinism  two 20-step resident4auto dam3d_100k runs: bitwise-equal x
+ 18. profile  one 12-step resident4auto dispatch at dam3d_100k and at
+              splash3d_1m: device time per step by kernel, operations per
+              step, busy share, host fetches per block
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
@@ -83,13 +106,17 @@ REPLACES = {
     "slot_force": "sph_tpu/pallas_step.py:837 (_force_kernel)",
     "packed_density": "sph_tpu/pallas_step.py:969 (_density_kernel_packed)",
     "packed_force": "sph_tpu/pallas_step.py:1024 (_force_kernel_packed)",
+    "stage_transpose": "sph_tpu/pallas_step.py:555 (_stage_transpose_kernel)",
 }
 SOURCE = {
     "slot_density": "sph_tpu_torch/csrc/slot_kernels.cu",
     "slot_force": "sph_tpu_torch/csrc/slot_kernels.cu",
     "packed_density": "sph_tpu_torch/csrc/packed_kernels.cu",
     "packed_force": "sph_tpu_torch/csrc/packed_kernels.cu",
+    "stage_transpose": "sph_tpu_torch/csrc/stage_kernels.cu",
 }
+# the production default (`sph-tpu run`'s --method auto)
+RESIDENT = dict(sort_every=4, slot_resident=True)
 RHO_RTOL, RHO_ATOL, F_REL = 1e-5, 1e-6, 3e-5
 N_TIMED = 20
 # steps each path is driven for
@@ -332,13 +359,52 @@ def phase_kernels_packed(dev, state, scene, grid=None, lattice="per step"):
     return res
 
 
+@contextlib.contextmanager
+def audited_advances():
+    """The audited advances `run` makes while the block runs (observation
+    only: they carry the resident policies' counters and mode)."""
+    from sph_tpu_torch import step as step_mod
+
+    made = []
+    real = step_mod.make_audited_advance
+
+    def spy(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    step_mod.make_audited_advance = spy
+    try:
+        yield made
+    finally:
+        step_mod.make_audited_advance = real
+
+
+def reset_counts() -> None:
+    from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
+    from sph_tpu_torch import stage_kernels as st, step as step_mod
+
+    sk.reset_launches()
+    pk.reset_launches()
+    st.reset_launches()
+    step_mod.reset_fetches()
+
+
+def read_counts() -> dict:
+    from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
+    from sph_tpu_torch import stage_kernels as st
+
+    return {**sk.LAUNCHES, **pk.LAUNCHES, **st.LAUNCHES}
+
+
 def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
                want=None, rho_band=None, vmax_limit: float = 500.0):
     """One of the port's paths through `run`, with its health checks.
     `want` maps each kernel to the launches the path must make: a number,
-    or a predicate for a path whose plan depends on its audit."""
+    or a predicate for a path whose plan depends on its audit.  For the
+    resident paths the output carries the policy's counters, its mode and
+    the host fetches per block."""
     from sph_tpu_torch import neighbors, pallas_step as ps, run
-    from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
+    from sph_tpu_torch import step as step_mod
 
     run_kw = dict(run_kw or {})
     sort_every = run_kw.get("sort_every", 1)
@@ -361,15 +427,15 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     notes = io.StringIO()
-    sk.reset_launches()
-    pk.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(notes):
+    with contextlib.redirect_stderr(notes), audited_advances() as made:
         state = run(scene, n_steps, method="pallas", state=state, device=dev,
                     **run_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**sk.LAUNCHES, **pk.LAUNCHES}
+    launches = read_counts()
+    fetches = dict(step_mod.FETCHES)
     peak = torch.cuda.max_memory_allocated()
     audit(state)
     sys.stderr.write(notes.getvalue())
@@ -390,6 +456,20 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
            "rho_mean_over_rest": rho_ratio, "max_speed": vmax,
            "audit_notes": notes.getvalue().strip().splitlines(),
            "final_step": int(state.step)}
+    if run_kw.get("slot_resident"):
+        out["policy"] = {
+            "healed": sum(getattr(a, "healed", 0) for a in made),
+            "repaired": sum(getattr(a, "repaired", 0) for a in made),
+            "rebuilds": sum(getattr(a, "rebuilds", 0) for a in made),
+            "modes": [a.mode for a in made if hasattr(a, "mode")],
+            "repair_k": step_mod.default_repair_k(
+                scene, auto=True,
+                packed_rows=bool(run_kw.get("packed_rows")))
+            if run_kw.get("repair_k", None) is None else run_kw["repair_k"],
+        }
+        out["host_fetches"] = {
+            **fetches,
+            "per_block": fetches["fetches"] / max(fetches["blocks"], 1)}
     emit(out)
     check(finite, f"finite state at {name}")
     check(seen["overflow"] == 0, f"no cap overflow at {name}")
@@ -553,6 +633,143 @@ def phase_profile(name: str, scene, state, n_steps: int, dev,
                   for ms, c, k in rows[:12]]})
 
 
+def phase_stage(preset_name: str, dev):
+    """K5 on the step-0 slot addressing of a preset, with the resident
+    path's 7 scatter columns (x | v | movable): against its plain version
+    and scatter_slots(staged=True) against the direct scatter, both
+    bitwise, with CUDA-event times and the bound; then the path of K5's
+    entry point, scatter_slots(staged=True), once, counted."""
+    from sph_tpu_torch import init, pallas_step as ps, preset
+    from sph_tpu_torch import stage_kernels as st
+
+    scene = preset(preset_name)
+    state = init(scene, device=dev)
+    sg, addr, _ = slot_inputs(scene, state)
+    d = scene.params.dim
+    zpad = state.x.new_zeros((state.capacity, 3 - d))
+    movf = (state.active & (state.kind == 0))[:, None].float()
+    rows = torch.cat([state.x, zpad, state.v, zpad, movf], dim=1)
+
+    reset_counts()                      # the entry point's own path
+    staged = ps.scatter_slots(addr, rows, sg, staged=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["stage_transpose"] == 1,
+          f"scatter_slots(staged=True) launched K5 once at {preset_name}")
+
+    direct = ps.scatter_slots(addr, rows, sg)
+    stag = ps.stage_rows(addr, rows, sg)
+    c_rows, lanes = sg.c_rows, sg.lanes
+    out_k = st.stage_transpose(stag, c_rows, lanes)
+    out_p = st.stage_transpose_plain(stag, c_rows, lanes)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(out_k, out_p)), f"K5 == plain at {preset_name}")
+    check(bool(torch.equal(staged, direct)),
+          f"staged scatter == direct scatter at {preset_name}")
+    lib_out = torch.empty_like(out_p)
+
+    def library():  # one PyTorch call: a strided copy into the output
+        lib_out.copy_(stag.view(c_rows, lanes, 8).transpose(1, 2))
+
+    moved = 2 * stag.numel() * stag.element_size()   # read once, write once
+    res = {
+        "max_abs_err": float((out_k - out_p).abs().max()),
+        "ms": cuda_ms(lambda: st.stage_transpose(stag, c_rows, lanes)),
+        "plain_ms": cuda_ms(lambda: st.stage_transpose_plain(
+            stag, c_rows, lanes)),
+        "bound_ms": moved / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+        "library_ms": cuda_ms(library),
+    }
+    emit({"phase": "kernels", "preset": preset_name, "kernel": "K5",
+          "stag": list(stag.shape), "feat": list(out_k.shape),
+          "bytes_moved": moved,
+          "staged_scatter_ms": cuda_ms(
+              lambda: ps.scatter_slots(addr, rows, sg, staged=True)),
+          "direct_scatter_ms": cuda_ms(lambda: ps.scatter_slots(addr, rows, sg)),
+          "kernels": {"stage_transpose": res}})
+    emit({"phase": "path", "preset": preset_name,
+          "entry": "scatter_slots(staged=True)", "launches": launches})
+    return res, launches["stage_transpose"]
+
+
+def resident_launches(out, steps: int, primes: int) -> int:
+    """K1/K2 launches the slot-layout resident path must make: one a step,
+    one a prime, and 4 more per healed block (its exact per-step re-run);
+    rebuilds, repairs and demoted dispatches add none of their own."""
+    return steps + primes + 4 * out["policy"]["healed"]
+
+
+def phase_resident_agreement(dev, n_steps: int = 20):
+    """resident4auto against the non-resident reuse path at dam3d_100k,
+    repair off: x within 1e-3 h; and two resident runs bitwise equal."""
+    from sph_tpu_torch import init, preset, run
+
+    scene = preset("dam3d_100k")
+    s0 = init(scene, device=dev)
+    res = run(scene, n_steps, method="pallas", state=s0, device=dev,
+              repair_k=0, **RESIDENT)
+    reuse = run(scene, n_steps, method="pallas", state=s0, device=dev,
+                sort_every=4)
+    act = res.active
+    same_active = bool(torch.equal(act, reuse.active))
+    dx = float((res.x[act] - reuse.x[act]).abs().max())
+    limit = 1e-3 * scene.params.h
+    emit({"phase": "agreement", "preset": "dam3d_100k", "steps": n_steps,
+          "a": "resident4auto, repair_k=0", "b": "sort_every=4 reuse",
+          "max_abs_dx": dx, "limit": limit, "same_active": same_active})
+    check(same_active and dx < limit,
+          "resident4auto vs reuse x within 1e-3 h at dam3d_100k")
+    a = run(scene, n_steps, method="pallas", state=s0, device=dev, **RESIDENT)
+    b = run(scene, n_steps, method="pallas", state=s0, device=dev, **RESIDENT)
+    same = bool(torch.equal(a.x, b.x))
+    emit({"phase": "determinism", "preset": "dam3d_100k", "steps": n_steps,
+          "run": RESIDENT, "bitwise_equal_x": same})
+    check(same, "two resident4auto runs give bitwise-equal x")
+
+
+def phase_profile_resident(name: str, scene, state, n_steps: int, dev):
+    """One `n_steps`-step resident4auto dispatch under torch.profiler,
+    after one warm dispatch: device time per step by kernel, operations per
+    step, busy share, and the host fetches per block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sph_tpu_torch import make_audited_advance, prime
+    from sph_tpu_torch import step as step_mod
+
+    adv = make_audited_advance(scene, "pallas", n_steps, device=dev,
+                               **RESIDENT)
+    if scene.params.integrator == "leapfrog":
+        state = prime(scene, state, "pallas", device=dev)
+    state = adv(state)
+    torch.cuda.synchronize()
+    before = (adv.healed, adv.rebuilds, adv.repaired)
+    step_mod.reset_fetches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = adv(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fetches = dict(step_mod.FETCHES)
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((e.device_time_total / 1e3 / n_steps,
+                         e.count / n_steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    emit({"phase": "profile", "preset": name, "steps": n_steps,
+          "run": RESIDENT, "healed": adv.healed - before[0],
+          "rebuilds": adv.rebuilds - before[1],
+          "repaired": adv.repaired - before[2], "host_fetches": fetches,
+          "wall_ms_per_step_profiled": wall / n_steps * 1e3,
+          "device_ms_per_step": busy,
+          "device_busy_share": busy / (wall / n_steps * 1e3),
+          "device_ops_per_step": sum(r[1] for r in rows),
+          "top": [{"ms_per_step": ms, "per_step": c, "name": k[:90]}
+                  for ms, c, k in rows[:12]]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -623,6 +840,67 @@ def main() -> int:
     phase_profile("emitters3d@settled", scene_e, settled, 12, dev,
                   sort_every=4, packed_rows=True)
 
+    # K5 and its entry point, then the production default on each path
+    stage = {p: phase_stage(p, dev) for p in ("dam3d_100k", "splash3d_1m")}
+    for name in ("dam3d_100k", "splash3d_1m"):
+        scene, n_steps = sph.preset(name), DEPTH[name]
+        out = runs[f"resident:{name}"] = phase_path(
+            name, scene, sph.init(scene, device=dev), n_steps, dev,
+            run_kw=dict(RESIDENT), rho_band=(0.90, 1.10))
+        launches = out["launches"]
+        want = resident_launches(
+            out, n_steps, int(scene.params.integrator == "leapfrog"))
+        check(launches["slot_density"] == launches["slot_force"] == want,
+              f"K1/K2 launched {want} times on resident4auto at {name}")
+        check(launches["packed_density"] == launches["packed_force"]
+              == launches["stage_transpose"] == 0,
+              f"no K3/K4/K5 launch on resident4auto at {name}")
+        check(out["policy"]["repair_k"] == sph.step.DEFAULT_REPAIR_K,
+              f"repair_k resolves to the production default at {name}")
+    n_e = DEPTH["emitters3d@settled"]
+    fits = sph.packed_fits(scene_e, settled, 4)
+    out = runs["resident:auto"] = phase_path(
+        "emitters3d@settled", scene_e, settled, n_e, dev,
+        run_kw=dict(RESIDENT, packed_rows=None), vmax_limit=3.0 * c0)
+    launches, healed = out["launches"], out["policy"]["healed"]
+    packed_steps = launches["packed_density"]
+    slot_steps = launches["slot_density"] - 4 * healed
+    emit({"phase": "packed_auto", "preset": "emitters3d@settled",
+          "packed_fits": fits,
+          "first_dispatch": "packed" if packed_steps else "slot",
+          "final_mode": out["policy"]["modes"][-1],
+          "packed_steps": packed_steps, "slot_steps": slot_steps})
+    check(launches["packed_force"] == packed_steps
+          and launches["slot_force"] == launches["slot_density"]
+          and launches["stage_transpose"] == 0,
+          "K3 with K4 and K1 with K2 on the packed auto policy")
+    check((packed_steps > 0) == fits,
+          "the packed auto policy's first dispatch follows packed_fits")
+    check(packed_steps % min(n_e, 100) == 0
+          and packed_steps + slot_steps == n_e,
+          "each 100-step dispatch on one layout, every step taken once")
+    mode = out["policy"]["modes"][-1]
+    check(mode in ("packed", "slot") and (slot_steps == 0 or mode == "slot")
+          and (mode == "slot" or packed_steps == n_e),
+          "the policy's final mode follows the layouts it ran")
+    out = runs["resident:packed"] = phase_path(
+        "emitters3d@settled", scene_e, settled, n_e, dev,
+        run_kw=dict(RESIDENT, packed_rows=True), vmax_limit=3.0 * c0)
+    launches, healed = out["launches"], out["policy"]["healed"]
+    check(launches["packed_density"] == launches["packed_force"] == n_e
+          and launches["slot_density"] == launches["slot_force"] == 4 * healed,
+          "pinned packed resident: K3/K4 once a step, K1/K2 only in heals")
+    phase_resident_agreement(dev)
+    for name, n_prof in (("dam3d_100k", 12), ("splash3d_1m", 12)):
+        scene = sph.preset(name)
+        phase_profile_resident(name, scene, sph.init(scene, device=dev),
+                               n_prof, dev)
+
+    def resident(name):
+        return {"resident4auto": {
+            p: runs[f"resident:{p}"]["launches"][name]
+            for p in ("dam3d_100k", "splash3d_1m", "auto", "packed")}}
+
     kernels = []
     for name in ("slot_density", "slot_force"):
         kernels.append({
@@ -636,6 +914,7 @@ def main() -> int:
             "at_settled": {"preset": "emitters3d@settled",
                            "launches": runs["reuse"]["launches"][name],
                            **at["emitters3d@settled"][name]},
+            **resident(name),
         })
     for name in ("packed_density", "packed_force"):
         kernels.append({
@@ -646,7 +925,18 @@ def main() -> int:
             "with_reuse": {"lattice": "sort_every=4",
                            "launches": runs["reuse"]["launches"][name],
                            **at_reuse[name]},
+            **resident(name),
         })
+    name = "stage_transpose"
+    kernels.append({
+        "name": name, "route": "cuda", "source": SOURCE[name],
+        "replaces": REPLACES[name],
+        "launches": stage["dam3d_100k"][1], **stage["dam3d_100k"][0],
+        "at_scale": {"preset": "splash3d_1m",
+                     "launches": stage["splash3d_1m"][1],
+                     **stage["splash3d_1m"][0]},
+        **resident(name),
+    })
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,12 @@ there.  The package imports neither JAX nor `sph_tpu`.  Entry points take
 PyTorch versions.
 
 Ported so far: `method="naive"`, and `method="pallas"` on the slot layout
-or on packed rows (`packed_rows=True`), per step or with Verlet-skin address
-reuse (`sort_every > 1`); checkpoints and `spawn`.  See ROADMAP.md for what
-follows.
+or on packed rows (`packed_rows=True`), per step, with Verlet-skin address
+reuse (`sort_every > 1`), and slot-resident with auto-rebuild, heal, repair,
+demotion and the packed auto policy — the production default,
+`run(scene, n, method="pallas", sort_every=4, slot_resident=True)`;
+`scatter_slots(staged=True)`; checkpoints and `spawn`.  See ROADMAP.md for
+what follows.
 """
 
 from sph_tpu_torch.diagnostics import load_checkpoint, save_checkpoint
@@ -29,6 +32,7 @@ from sph_tpu_torch.params import (
 )
 from sph_tpu_torch.state import State, init, spawn
 from sph_tpu_torch.step import (
+    default_repair_k,
     default_skin,
     make_advance,
     make_audited_advance,
@@ -58,6 +62,7 @@ __all__ = [
     "make_advance",
     "make_audited_advance",
     "default_skin",
+    "default_repair_k",
     "packed_fits",
     "prime",
     "run",

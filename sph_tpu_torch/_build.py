@@ -44,6 +44,9 @@ SIGNATURES = {
         "packed_force": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                          _F, _F, _F, _F, _I, _P),
     },
+    "stage_kernels": {
+        "stage_transpose": (_P, _P, _I, _I, _I, _P),
+    },
 }
 
 

@@ -12,7 +12,9 @@ Layout, kept from the reference so per-particle results compare one to one:
   2. One scatter packs per-particle features [x | v] into
      feat[c_rows, FEAT, lanes]: feature axis in the middle, (x-cell · cap)
      on the lanes, with a one-group (128-lane) x halo on each side so every
-     ±1-cell candidate window is in bounds.
+     ±1-cell candidate window is in bounds.  `staged=True` scatters into a
+     feature-minor staging array instead and transposes it with K5
+     (`stage_kernels.py`, `csrc/stage_kernels.cu`); the result is the same.
   3. The density kernel (K1) reads the 3^(D-1) neighbor rows of each row
      through the int32 table `nbr_pos[R, c_rows]`, sums poly6 over the ±1
      x-cells, applies the EOS, and writes lane-major (rho, p) rows
@@ -46,7 +48,7 @@ from dataclasses import dataclass
 
 import torch
 
-from sph_tpu_torch import packed_kernels, physics, slot_kernels
+from sph_tpu_torch import packed_kernels, physics, slot_kernels, stage_kernels
 from sph_tpu_torch.neighbors import GridSpec, cell_index
 from sph_tpu_torch.params import SimParams
 from sph_tpu_torch.platform import device_const
@@ -310,9 +312,39 @@ def _flat_slot_idx(addr: SlotAddr, sg: SlotGrid, ncols: int, dump: int):
     return torch.where(ok[:, None], base[:, None] + cols[None, :], dump)
 
 
-def scatter_slots(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid):
+def _init_row(dtype, device) -> torch.Tensor:
+    """Empty-slot feature row: far-away dummy position, zeros elsewhere."""
+    return device_const((1e18, 1e18, 1e18, 0, 0, 0, 0, 0), dtype, device)
+
+
+def stage_rows(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid):
+    """The feature-minor staging array [c_rows·lanes, FEAT] of
+    `scatter_slots(staged=True)`: each particle's row, padded to FEAT
+    columns with zeros, at its slot; the empty-slot row elsewhere."""
+    n, ncols = rows.shape
+    if ncols < FEAT:
+        rows = torch.cat([rows, rows.new_zeros((n, FEAT - ncols))], dim=1)
+    size = sg.c_rows * sg.lanes
+    base = torch.where(
+        addr.ok(), addr.row_pos.long() * sg.lanes + addr.pos.long(), size)
+    stag = _init_row(rows.dtype, rows.device).repeat(size + 1, 1)
+    stag.index_put_((base,), rows)     # row `size`: the dump of the slotless
+    return stag[:size]
+
+
+def scatter_slots(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid,
+                  staged: bool = False):
     """Scatter packed [N, ncols] rows → feat [c_rows, FEAT, lanes]; empty
-    slots hold the far-away row (1e18, 1e18, 1e18, 0, ...)."""
+    slots hold the far-away row (1e18, 1e18, 1e18, 0, ...).
+
+    staged=True: pad the rows to FEAT columns, scatter each particle's row
+    into a feature-minor staging array [c_rows·lanes, FEAT] (its features
+    contiguous, one row write per particle; particles without a slot go to
+    a spare dump row), then transpose it to the kernel layout with K5
+    (`stage_kernels`).  Bitwise the direct scatter's result."""
+    if staged:
+        return stage_kernels.stage_transpose(
+            stage_rows(addr, rows, sg), sg.c_rows, sg.lanes)
     size = sg.c_rows * FEAT * sg.lanes
     flat = torch.empty(size + 1, dtype=rows.dtype, device=rows.device)
     feat = flat[:size].view(sg.c_rows, FEAT, sg.lanes)

@@ -1,5 +1,5 @@
-"""The CUDA kernels on a card against their plain PyTorch versions, and the
-port's path through them.  Every test here is marked `gpu` and skips
+"""The CUDA kernels (K1-K5) on a card against their plain PyTorch versions,
+and the port's paths through them.  Every test here is marked `gpu` and skips
 without a card (decided inside the test).  The file imports neither JAX
 nor `sph_tpu`, so it also runs where those are not installed:
 
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import sph_tpu_torch as port
-from sph_tpu_torch import neighbors, packed_kernels, slot_kernels
+from sph_tpu_torch import neighbors, packed_kernels, slot_kernels, stage_kernels
 from sph_tpu_torch import pallas_step as ps
 
 torch.set_num_threads(1)
@@ -200,3 +200,55 @@ def test_packed_run_on_card_goes_through_the_packed_kernels():
                     steps_per_dispatch=8, device="cpu")
     xs = host.x.abs().max()
     assert float((state.x.cpu() - host.x).abs().max() / xs) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True], ids=["slot", "packed"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_stage_transpose_matches_plain_version(dim, packed):
+    """K5 against its plain version, and `scatter_slots(staged=True)`
+    against the direct scatter: bitwise, empty slots and dropped particles
+    included."""
+    dev = _card()
+    if packed:
+        _, sg, addr, _ = _packed_slots(dim, 256, {}, dev)
+    else:
+        _, sg, addr, _ = _slots(dim, 16, {}, dev)
+    n = addr.pos.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(57)
+    rows = torch.rand((n, 7), generator=gen, device=dev)
+    stag = torch.rand((sg.c_rows * sg.lanes, 8), generator=gen, device=dev)
+    before = stage_kernels.LAUNCHES["stage_transpose"]
+    out = stage_kernels.stage_transpose(stag, sg.c_rows, sg.lanes)
+    staged = ps.scatter_slots(addr, rows, sg, staged=True)
+    torch.cuda.synchronize()
+    assert stage_kernels.LAUNCHES["stage_transpose"] == before + 2
+    assert torch.equal(out, stage_kernels.stage_transpose_plain(
+        stag, sg.c_rows, sg.lanes))
+    assert torch.equal(staged, ps.scatter_slots(addr, rows, sg))
+    assert not bool(addr.ok().all())
+
+
+@pytest.mark.gpu
+def test_production_default_on_card_goes_through_the_kernels():
+    """`run(..., sort_every=4, slot_resident=True)`: K1/K2 once a step on
+    the slot layout plus 4 a healed block (its exact re-run), and the same
+    trajectory as on the host within the reference's trajectory bounds."""
+    dev = _card()
+    scene = port.preset("dam2d_10k")
+    slot_kernels.reset_launches()
+    packed_kernels.reset_launches()
+    audited = port.make_audited_advance(scene, "pallas", 16, sort_every=4,
+                                        slot_resident=True, device=dev)
+    state = audited(port.init(scene, device=dev))
+    torch.cuda.synchronize()
+    want = 16 + 4 * audited.healed
+    assert slot_kernels.LAUNCHES == {"slot_density": want, "slot_force": want}
+    assert packed_kernels.LAUNCHES == {"packed_density": 0, "packed_force": 0}
+    assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
+    host = port.make_audited_advance(scene, "pallas", 16, sort_every=4,
+                                     slot_resident=True, device="cpu")
+    host_state = host(port.init(scene, device="cpu"))
+    assert (host.healed, host.rebuilds) == (audited.healed, audited.rebuilds)
+    xs = host_state.x.abs().max()
+    assert float((state.x.cpu() - host_state.x).abs().max() / xs) < 1e-4

@@ -1,7 +1,8 @@
 """Rules of the port: `sph_tpu_torch` imports neither JAX nor `sph_tpu`,
 entry points never fall back to the CPU on their own, CPU tensors never
-count as kernel launches, non-CPU tensors never take the plain version,
-and options the port does not have yet raise NotImplementedError."""
+count as kernel launches (K1-K5), non-CPU tensors never take the plain
+version, and options the port does not have yet raise NotImplementedError
+naming their ROADMAP.md item."""
 
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import torch
 
 import sph_tpu_torch as port
 from sph_tpu_torch import _build, packed_kernels, platform, slot_kernels
+from sph_tpu_torch import stage_kernels
 from sph_tpu_torch import pallas_step as tps
 from sph_tpu_torch.neighbors import GridSpec
 
@@ -31,8 +33,8 @@ def test_import_pulls_in_neither_jax_nor_sph_tpu():
     code = (
         "import sys, sph_tpu_torch, sph_tpu_torch.step, "
         "sph_tpu_torch.pallas_step, sph_tpu_torch.slot_kernels, "
-        "sph_tpu_torch.packed_kernels, sph_tpu_torch.diagnostics, "
-        "sph_tpu_torch._build\n"
+        "sph_tpu_torch.packed_kernels, sph_tpu_torch.stage_kernels, "
+        "sph_tpu_torch.diagnostics, sph_tpu_torch._build\n"
         "import pkgutil\n"
         "for m in pkgutil.iter_modules(sph_tpu_torch.__path__):\n"
         "    __import__('sph_tpu_torch.' + m.name)\n"
@@ -73,6 +75,16 @@ def test_cpu_run_leaves_launch_counts_at_zero():
                      sort_every=2, state=state, device="cpu")
     assert int(state.step) == 7
     assert packed_kernels.LAUNCHES == {"packed_density": 0, "packed_force": 0}
+    state = port.run(_scene(), 4, method="pallas", sort_every=2,
+                     slot_resident=True, state=state, device="cpu")
+    assert int(state.step) == 11
+    assert slot_kernels.LAUNCHES == {"slot_density": 0, "slot_force": 0}
+    stage_kernels.reset_launches()
+    sg = tps.slot_grid(GridSpec.for_scene(_scene()))
+    addr = tps.build_addr(state.x, state.active, GridSpec.for_scene(_scene()),
+                          sg)
+    tps.scatter_slots(addr, tps._pack_rows6(state.x, state.v), sg, staged=True)
+    assert stage_kernels.LAUNCHES == {"stage_transpose": 0}
 
 
 def test_steps_make_no_tensors_from_host_values(monkeypatch):
@@ -125,6 +137,11 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, tmp_path):
         packed_kernels.packed_force(feat, torch.empty((3, 2, 256), device=m),
                                     n_occ, nbr, jb, gc, p)
     assert packed_kernels.LAUNCHES == {"packed_density": 0, "packed_force": 0}
+    stage_kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        stage_kernels.stage_transpose(torch.empty((3 * 256, 8), device=m), 3,
+                                      256)
+    assert stage_kernels.LAUNCHES == {"stage_transpose": 0}
 
 
 def test_wrappers_reject_malformed_slot_arrays():
@@ -142,19 +159,25 @@ def test_wrappers_reject_malformed_slot_arrays():
                                 gc, 16, p)
 
 
+# The slot-resident paths themselves are ported; what stays out of the slice
+# around them: the bf16-pair scatter transport of the resident advance, the
+# resident path and its repair across slabs, and the audited cap-8 policy.
 OUT_OF_SLICE = {
-    "resident_packed": lambda s: port.run(s, 4, "pallas", sort_every=4,
-                                          slot_resident=True,
-                                          packed_rows=True, device="cpu"),
-    "slot_resident": lambda s: port.run(s, 4, "pallas", slot_resident=True,
+    "resident_packed": lambda s: port.make_advance(
+        s, "pallas", steps_per_dispatch=4, sort_every=4, slot_resident=True,
+        auto_rebuild=True, packed_scatter=True, device="cpu"),
+    "slot_resident": lambda s: port.run(s, 4, "pallas", sort_every=4,
+                                        slot_resident=True, shards=2,
                                         device="cpu"),
     "adaptive_cap": lambda s: port.run(s, 4, "pallas", adaptive_cap=True,
                                        device="cpu"),
     "shards": lambda s: port.run(s, 4, "pallas", shards=2, device="cpu"),
-    "repair_k": lambda s: port.run(s, 4, "pallas", sort_every=4, repair_k=64,
+    "repair_k": lambda s: port.run(s, 4, "pallas", sort_every=4,
+                                   slot_resident=True, repair_k=64, shards=2,
                                    device="cpu"),
     "audited_resident": lambda s: port.make_audited_advance(
-        s, "pallas", 8, sort_every=4, slot_resident=True, device="cpu"),
+        s, "pallas", 8, sort_every=4, slot_resident=True, adaptive_cap=True,
+        device="cpu"),
     "row_pair": lambda s: port.make_step(s, "pallas", row_pair=True,
                                          device="cpu"),
     "xsub": lambda s: port.make_advance(s, "pallas", xsub=2, device="cpu"),
