@@ -65,6 +65,39 @@ Phases, each printed as one JSON line:
  18. profile  one 12-step resident4auto dispatch at dam3d_100k and at
               splash3d_1m: device time per step by kernel, operations per
               step, busy share, host fetches per block
+ 19. kernels  precision="bf16" at dam3d_100k and splash3d_1m (step-0 slot
+              arrays, bf16 cell-relative features): the bf16 K1/K2 against
+              their plain versions at phase 3's tolerances, times, bounds
+              (features at 2 B); per particle against the fp32 kernels
+              within the reference's bf16 tolerances (rho rtol 2e-2, f
+              within 6e-2 of the fp32 force scale, tests/test_bf16.py)
+ 20. kernels  xsub=2 at dam3d_100k: K1/K2 with the xsub margin against their
+              plain versions, times, bounds
+ 21. path     bf16 per step and bf16 resident4auto at dam3d_100k (200
+              steps) and splash3d_1m (20), with the health checks of phases
+              5-6 and 14, repair_k resolving to 0, and the bf16 kernels
+              launched as the plan implies (the fp32 ones never)
+ 22. agreement  bf16 at dam3d_100k: the classic resident block against
+              reuse after 20 steps, x and rho bitwise with no overflow; bf16
+              against fp32 (resident4auto) after 20 steps, max|dx| < h/16
+ 23. path     at dam3d_100k, 200 steps each: the packed_scatter transport
+              (its own loop over make_advance(..., auto_rebuild=True,
+              packed_scatter=True), which run does not take), xsub=2 per
+              step and resident4auto, and row_pair resident4auto, with
+              health, counters and launches
+ 24. agreement  20 steps at dam3d_100k against the default: row_pair per
+              step and resident bitwise; xsub=2 resident within 1e-3 h;
+              packed_scatter within 3 x 2^-10 cell and rho within 1%
+              (one bf16 round trip of a cell-relative x, |x - center| <
+              cell/2, is at most 2^-10 cell; in the absolute frame it is
+              up to 0.5 at x ~ 160)
+ 25. kernels  P1: the fp32 and packed-bf16 probe kernels bitwise against
+              the plain chain on U[0,1) inputs (finite) and on the probe's
+              own (all inf); its entry point's timing run (50 calls a
+              dtype, replayed as a CUDA graph; the direct launches beside),
+              ms, Top/s, ratio, bound; the SASS opcode counts of
+              both kernels (cuobjdump -sass): packed bf16 instructions in
+              the bf16 kernel, no FFMA in the fp32 one
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
@@ -77,6 +110,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -94,19 +129,27 @@ PEAK_F32_S = 67e12
 #     max + divide for 1/ρ_j, p_i+p_j, coef_p (3), coef_v (3), and per
 #     component sub, 2 mul, 2 add (15)
 # K3 and K4 repeat K1's and K2's pair arithmetic; K4 takes 1/rho_j (max +
-# divide) once per staged lane, not per pair.  The pairs counted for a bound
+# divide) once per staged lane, not per pair.  The bf16 K1/K2 add one
+# offset add per coordinate of the candidate (the upcast is a bit shift).  The pairs counted for a bound
 # are those the function needs (a particle against the particles of its +-1
 # cells on the per-step lattice), the same for both layouts of one state;
 # the candidates a kernel's own blocking visits beyond them are printed
 # beside the bound and are not part of it.
 OPS_PER_PAIR = {"slot_density": 13, "slot_force": 41,
-                "packed_density": 13, "packed_force": 39}
+                "packed_density": 13, "packed_force": 39,
+                "slot_density_bf16": 16, "slot_force_bf16": 44}
 REPLACES = {
     "slot_density": "sph_tpu/pallas_step.py:750 (_density_kernel)",
     "slot_force": "sph_tpu/pallas_step.py:837 (_force_kernel)",
     "packed_density": "sph_tpu/pallas_step.py:969 (_density_kernel_packed)",
     "packed_force": "sph_tpu/pallas_step.py:1024 (_force_kernel_packed)",
     "stage_transpose": "sph_tpu/pallas_step.py:555 (_stage_transpose_kernel)",
+    "slot_density_bf16": "sph_tpu/pallas_step.py:750 (_density_kernel, bf16 "
+                         "branch :767-790)",
+    "slot_force_bf16": "sph_tpu/pallas_step.py:837 (_force_kernel, bf16 "
+                       "branch :855-887)",
+    "probe_fp32": "bench/probe_vpu_bf16.py:38 (make_kernel, float32)",
+    "probe_bf16": "bench/probe_vpu_bf16.py:38 (make_kernel, bfloat16)",
 }
 SOURCE = {
     "slot_density": "sph_tpu_torch/csrc/slot_kernels.cu",
@@ -114,10 +157,16 @@ SOURCE = {
     "packed_density": "sph_tpu_torch/csrc/packed_kernels.cu",
     "packed_force": "sph_tpu_torch/csrc/packed_kernels.cu",
     "stage_transpose": "sph_tpu_torch/csrc/stage_kernels.cu",
+    "slot_density_bf16": "sph_tpu_torch/csrc/slot_kernels.cu",
+    "slot_force_bf16": "sph_tpu_torch/csrc/slot_kernels.cu",
+    "probe_fp32": "sph_tpu_torch/csrc/probe_kernels.cu",
+    "probe_bf16": "sph_tpu_torch/csrc/probe_kernels.cu",
 }
 # the production default (`sph-tpu run`'s --method auto)
 RESIDENT = dict(sort_every=4, slot_resident=True)
 RHO_RTOL, RHO_ATOL, F_REL = 1e-5, 1e-6, 3e-5
+# bf16 against fp32 per particle (tests/test_bf16.py:50-54)
+BF16_RHO_RTOL, BF16_F_REL = 2e-2, 6e-2
 N_TIMED = 20
 # steps each path is driven for
 DEPTH = {"dam3d_100k": 200, "splash3d_1m": 20, "emitters3d@settled": 200}
@@ -169,13 +218,13 @@ def phase_build():
               "ptxas": ptxas})
 
 
-def reuse_grid(scene, sort_every: int):
+def reuse_grid(scene, sort_every: int, xsub: int = 1):
     """The skinned lattice run(..., sort_every=) builds its addressing on."""
     from sph_tpu_torch import default_skin, neighbors
 
     base = neighbors.GridSpec.for_scene(scene)
     return neighbors.GridSpec.for_scene(
-        scene, cap=base.cap, skin=default_skin(scene, sort_every))
+        scene, cap=base.cap, skin=default_skin(scene, sort_every), xsub=xsub)
 
 
 def slot_inputs(scene, state, packed: bool = False, grid=None):
@@ -220,15 +269,17 @@ def bound(name: str, feat, addr, sg, dim: int, pairs: int):
     layout:
     only the occupied rows 1..n_occ are read and written (the gathers read
     no other row, so the zeros the kernels write past n_occ are not
-    counted).  Packed rows: only the occupied 128-lane blocks."""
+    counted).  Packed rows: only the occupied 128-lane blocks.  Features
+    count at their size (bf16: 2 B), rho, p and f at 4 B."""
     if sg.packed:
         n_lanes = int((addr.gcounts > 0).sum()) * 128
     else:
         n_lanes = int(addr.n_occ[0]) * feat.shape[2]
-    if name.endswith("density"):  # read x, write rho and p
-        moved = n_lanes * (dim + 2) * 4
+    fb = feat.element_size()
+    if "density" in name:         # read x, write rho and p
+        moved = n_lanes * (dim * fb + 2 * 4)
     else:                         # read x, v, rho and p, write f
-        moved = n_lanes * (2 * dim + 2 + dim) * 4
+        moved = n_lanes * (2 * dim * fb + 2 * 4 + dim * 4)
     t_bytes = moved / PEAK_BYTES_S * 1e3
     t_ops = pairs * OPS_PER_PAIR[name] / PEAK_F32_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -381,19 +432,47 @@ def audited_advances():
 
 def reset_counts() -> None:
     from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
+    from sph_tpu_torch import probe_vpu_bf16 as pr
     from sph_tpu_torch import stage_kernels as st, step as step_mod
 
     sk.reset_launches()
     pk.reset_launches()
     st.reset_launches()
+    pr.reset_launches()
     step_mod.reset_fetches()
 
 
 def read_counts() -> dict:
     from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
+    from sph_tpu_torch import probe_vpu_bf16 as pr
     from sph_tpu_torch import stage_kernels as st
 
-    return {**sk.LAUNCHES, **pk.LAUNCHES, **st.LAUNCHES}
+    return {**sk.LAUNCHES, **pk.LAUNCHES, **st.LAUNCHES, **pr.LAUNCHES}
+
+
+def health(state, scene) -> dict:
+    """What the paths' health checks read off the state a run ends on."""
+    act = state.active
+    fluid = act & (state.kind == 0)
+    return {
+        "finite": all(bool(torch.isfinite(getattr(state, f)).all())
+                      for f in ("x", "v", "acc", "rho", "p")),
+        "particles": int(act.sum()),
+        "rho_mean_over_rest":
+            float(state.rho[fluid].mean()) / scene.params.rest_density,
+        "max_speed": float(torch.linalg.vector_norm(state.v[act], dim=1).max()),
+    }
+
+
+def check_health(name: str, hl: dict, n_start: int, overflow: int,
+                 rho_band=None, vmax_limit: float = 500.0) -> None:
+    check(hl["finite"], f"finite state at {name}")
+    check(overflow == 0, f"no cap overflow at {name}")
+    if rho_band is not None:
+        check(rho_band[0] <= hl["rho_mean_over_rest"] <= rho_band[1],
+              f"mean rho/rho0 at {name}")
+    check(hl["max_speed"] < vmax_limit, f"max|v| < {vmax_limit} at {name}")
+    check(hl["particles"] >= n_start, f"no particle lost at {name}")
 
 
 def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
@@ -409,11 +488,12 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
     run_kw = dict(run_kw or {})
     sort_every = run_kw.get("sort_every", 1)
     packed = bool(run_kw.get("packed_rows"))
+    xsub = run_kw.get("xsub", 1)
     # the audit lattice is the one the path builds its addressing on
     if sort_every > 1:
-        grid = reuse_grid(scene, sort_every)
+        grid = reuse_grid(scene, sort_every, xsub)
     else:
-        grid = neighbors.GridSpec.for_scene(scene)
+        grid = neighbors.GridSpec.for_scene(scene, xsub=xsub)
     sg = ps.packed_grid(grid) if packed else ps.slot_grid(grid)
     seen = {"overflow": 0, "n_occ": 0}
 
@@ -440,20 +520,14 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
     audit(state)
     sys.stderr.write(notes.getvalue())
 
-    act = state.active
-    fluid = act & (state.kind == 0)
-    finite = all(bool(torch.isfinite(getattr(state, f)).all())
-                 for f in ("x", "v", "acc", "rho", "p"))
-    rho_ratio = float(state.rho[fluid].mean()) / scene.params.rest_density
-    vmax = float(torch.linalg.vector_norm(state.v[act], dim=1).max())
+    hl = health(state, scene)
     out = {"phase": "path", "preset": name, "steps": n_steps,
            "run": {k: v for k, v in run_kw.items()},
-           "particles": int(act.sum()), "particles_at_start": n_start,
+           **hl, "particles_at_start": n_start,
            "ms_per_step": wall / n_steps * 1e3,
            "ms_per_step_note": "host clock over run(), prime included",
            "peak_bytes": peak, "launches": launches,
            "overflow": seen["overflow"], "n_occ": seen["n_occ"],
-           "rho_mean_over_rest": rho_ratio, "max_speed": vmax,
            "audit_notes": notes.getvalue().strip().splitlines(),
            "final_step": int(state.step)}
     if run_kw.get("slot_resident"):
@@ -463,7 +537,8 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
             "rebuilds": sum(getattr(a, "rebuilds", 0) for a in made),
             "modes": [a.mode for a in made if hasattr(a, "mode")],
             "repair_k": step_mod.default_repair_k(
-                scene, auto=True,
+                scene, auto=True, xsub=xsub,
+                row_pair=bool(run_kw.get("row_pair")),
                 packed_rows=bool(run_kw.get("packed_rows")))
             if run_kw.get("repair_k", None) is None else run_kw["repair_k"],
         }
@@ -471,13 +546,7 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
             **fetches,
             "per_block": fetches["fetches"] / max(fetches["blocks"], 1)}
     emit(out)
-    check(finite, f"finite state at {name}")
-    check(seen["overflow"] == 0, f"no cap overflow at {name}")
-    if rho_band is not None:
-        check(rho_band[0] <= rho_ratio <= rho_band[1],
-              f"mean rho/rho0 at {name}")
-    check(vmax < vmax_limit, f"max|v| < {vmax_limit} at {name}")
-    check(int(act.sum()) >= n_start, f"no particle lost at {name}")
+    check_health(name, hl, n_start, seen["overflow"], rho_band, vmax_limit)
     for kernel, n in (want or {}).items():
         good = n(launches[kernel]) if callable(n) else launches[kernel] == n
         check(good, f"{kernel} launched {launches[kernel]} times at {name}")
@@ -770,6 +839,351 @@ def phase_profile_resident(name: str, scene, state, n_steps: int, dev):
                   for ms, c, k in rows[:12]]})
 
 
+def bf16_scene(scene):
+    return scene.replace(params=scene.params.replace(precision="bf16"))
+
+
+def phase_kernels_bf16(preset_name: str, dev):
+    """The bf16 K1/K2 on the step-0 slot arrays of a preset: against their
+    plain versions, against the fp32 kernels per particle, times, bound."""
+    from sph_tpu_torch import init, neighbors, pallas_step as ps, preset
+    from sph_tpu_torch import slot_kernels as sk
+
+    scene = preset(preset_name)
+    params = bf16_scene(scene).params
+    d = params.dim
+    state = init(scene, device=dev)
+    grid = neighbors.GridSpec.for_scene(scene)
+    sg = ps.slot_grid(grid)
+    addr = ps.build_addr(state.x, state.active, grid, sg)
+    feat = ps.scatter_slots(addr, ps._rel_rows(state.x, state.v, addr), sg)
+    feat32 = ps.scatter_slots(addr, ps._pack_rows6(state.x, state.v), sg)
+    check(feat.dtype == torch.bfloat16, "bf16 features")
+    args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params, 1,
+            sg.cell)
+    args32 = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, scene.params)
+
+    rp_k = sk.slot_density(feat, *args)
+    rp_p = sk.density_plain(feat, *args)
+    f_k = sk.slot_force(feat, rp_k, *args)
+    f_p = sk.force_plain(feat, rp_k, *args)
+    rp32 = sk.slot_density(feat32, *args32)
+    f32 = sk.slot_force(feat32, rp32, *args32)
+    torch.cuda.synchronize()
+    rho_k, ok = ps._gather_rho(rp_k, addr, sg, params)
+    rho_p, _ = ps._gather_rho(rp_p, addr, sg, params)
+    rho32, _ = ps._gather_rho(rp32, addr, sg, params)
+    check(bool(torch.allclose(rho_k, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)),
+          f"bf16 K1 vs plain at {preset_name}")
+    fk, fp, f32g = (ps._gather_f(t, addr, sg, d, ok) for t in (f_k, f_p, f32))
+    f_err = float(torch.max(torch.abs(fk - fp)))
+    f_scale = float(torch.max(torch.abs(fp)))
+    check(f_err / f_scale < F_REL, f"bf16 K2 vs plain at {preset_name}")
+    rho_vs32 = float(torch.max(torch.abs(rho_k / rho32 - 1.0)))
+    f_vs32 = float(torch.max(torch.abs(fk - f32g))) / float(
+        torch.max(torch.abs(f32g)))
+    check(bool(torch.allclose(rho_k, rho32, rtol=BF16_RHO_RTOL))
+          and f_vs32 < BF16_F_REL, f"bf16 vs fp32 kernels at {preset_name}")
+    check(bool(torch.isfinite(rho_k).all() and torch.isfinite(fk).all()),
+          f"finite bf16 kernel outputs at {preset_name}")
+
+    pairs = real_pairs(feat32, addr, sg)
+    res = {}
+    for name, kern, plain, err in (
+        ("slot_density_bf16", lambda: sk.slot_density(feat, *args),
+         lambda: sk.density_plain(feat, *args),
+         float(torch.max(torch.abs(rho_k - rho_p)))),
+        ("slot_force_bf16", lambda: sk.slot_force(feat, rp_k, *args),
+         lambda: sk.force_plain(feat, rp_k, *args), f_err),
+    ):
+        b_ms, b_by = bound(name, feat, addr, sg, d, pairs)
+        res[name] = {
+            "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    emit({"phase": "kernels", "preset": preset_name, "precision": "bf16",
+          "feat": list(feat.shape), "n_occ": int(addr.n_occ[0]),
+          "particles": int(ok.sum()), "candidate_pairs": pairs,
+          "f_max_rel_err": f_err / f_scale,
+          "vs_fp32": {"rho_max_rel": rho_vs32, "f_max_rel_of_scale": f_vs32,
+                      "limits": [BF16_RHO_RTOL, BF16_F_REL]},
+          "kernels": res})
+    return res
+
+
+def phase_kernels_xsub(preset_name: str, dev, xsub: int = 2):
+    """K1/K2 with the xsub candidate margin on the step-0 slot arrays of
+    the xsub lattice: against their plain versions, times, bound (the
+    pairs the function needs are those of the per-step lattice)."""
+    from sph_tpu_torch import init, neighbors, pallas_step as ps, preset
+    from sph_tpu_torch import slot_kernels as sk
+
+    scene = preset(preset_name)
+    params, d = scene.params, scene.params.dim
+    state = init(scene, device=dev)
+    grid = neighbors.GridSpec.for_scene(scene, xsub=xsub)
+    sg, addr, feat = slot_inputs(scene, state, grid=grid)
+    args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params, sg.xsub,
+            sg.cell)
+    rp_k = sk.slot_density(feat, *args)
+    rp_p = sk.density_plain(feat, *args)
+    f_k = sk.slot_force(feat, rp_k, *args)
+    f_p = sk.force_plain(feat, rp_k, *args)
+    torch.cuda.synchronize()
+    rho_k, ok = ps._gather_rho(rp_k, addr, sg, params)
+    rho_p, _ = ps._gather_rho(rp_p, addr, sg, params)
+    check(bool(torch.allclose(rho_k, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)),
+          f"xsub K1 vs plain at {preset_name}")
+    fk, fp = (ps._gather_f(t, addr, sg, d, ok) for t in (f_k, f_p))
+    f_err = float(torch.max(torch.abs(fk - fp)))
+    f_scale = float(torch.max(torch.abs(fp)))
+    check(f_err / f_scale < F_REL, f"xsub K2 vs plain at {preset_name}")
+    check(int(addr.overflow) == 0, f"no slot-cell overflow at xsub={xsub}")
+    sg1, addr1, feat1 = slot_inputs(scene, state)
+    pairs = real_pairs(feat1, addr1, sg1)
+    res = {}
+    for name, kern, plain, err in (
+        ("slot_density", lambda: sk.slot_density(feat, *args),
+         lambda: sk.density_plain(feat, *args),
+         float(torch.max(torch.abs(rho_k - rho_p)))),
+        ("slot_force", lambda: sk.slot_force(feat, rp_k, *args),
+         lambda: sk.force_plain(feat, rp_k, *args), f_err),
+    ):
+        b_ms, b_by = bound(name, feat, addr, sg, d, pairs)
+        res[name] = {"xsub": xsub, "max_abs_err": err, "ms": cuda_ms(kern),
+                     "plain_ms": cuda_ms(plain), "bound_ms": b_ms,
+                     "bound_by": b_by}
+    emit({"phase": "kernels", "preset": preset_name, "xsub": xsub,
+          "slot_cap": sg.cap, "feat": list(feat.shape),
+          "n_occ": int(addr.n_occ[0]), "particles": int(ok.sum()),
+          "f_max_rel_err": f_err / f_scale, "kernels": res})
+    return res
+
+
+def phase_bf16_agreement(dev, n_steps: int = 20):
+    """bf16 at dam3d_100k: the classic resident block against the reuse
+    path, bitwise in x and rho where nothing overflowed (tests/test_bf16.py
+    ::test_bf16_resident_bitwise_vs_classic_reuse); bf16 against fp32
+    resident4auto, max|dx| below h/16 (the reference's 1.0 at h = 16)."""
+    from sph_tpu_torch import init, make_advance, preset, prime, run
+
+    scene = preset("dam3d_100k")
+    scene_b = bf16_scene(scene)
+    s0 = prime(scene_b, init(scene, device=dev), "pallas", device=dev)
+    kw = dict(steps_per_dispatch=n_steps, sort_every=4, device=dev)
+    s_a, viol_a = make_advance(scene_b, "pallas", **kw)(s0)
+    s_b, viol_b = make_advance(scene_b, "pallas", slot_resident=True,
+                               **kw)(s0)
+    viol = (int(viol_a), int(viol_b))
+    same = bool(torch.equal(s_a.x, s_b.x) and torch.equal(s_a.rho, s_b.rho))
+    emit({"phase": "agreement", "preset": "dam3d_100k", "precision": "bf16",
+          "steps": n_steps, "a": "sort_every=4 reuse",
+          "b": "classic resident block", "violations": viol,
+          "bitwise_x_rho": same})
+    check(viol == (0, 0) and same, "bf16 resident == reuse bitwise in x, rho")
+    i0 = init(scene, device=dev)
+    a = run(scene_b, n_steps, method="pallas", state=i0, device=dev,
+            **RESIDENT)
+    b = run(scene, n_steps, method="pallas", state=i0, device=dev, **RESIDENT)
+    act = a.active
+    dx = float((a.x[act] - b.x[act]).abs().max())
+    limit = scene.params.h / 16
+    emit({"phase": "agreement", "preset": "dam3d_100k", "steps": n_steps,
+          "a": "bf16 resident4auto", "b": "fp32 resident4auto",
+          "max_abs_dx": dx, "limit": limit})
+    check(dx < limit, "bf16 vs fp32 x within h/16 after 20 steps")
+
+
+def phase_packed_scatter(dev, n_steps: int, spd: int = 100):
+    """The packed_scatter transport at dam3d_100k: `n_steps` of the
+    auto-rebuild resident advance it belongs to (`make_advance(...,
+    auto_rebuild=True, packed_scatter=True)`; `run` does not take it), from
+    the primed state, with the paths' health checks, its counters, and
+    K1/K2 launched once a step plus 4 times per healed block."""
+    from sph_tpu_torch import init, make_advance, pallas_step as ps, preset
+    from sph_tpu_torch import prime, step as step_mod
+
+    name = "dam3d_100k packed_scatter"
+    scene = preset("dam3d_100k")
+    state = prime(scene, init(scene, device=dev), "pallas", device=dev)
+    adv = make_advance(scene, "pallas", steps_per_dispatch=spd, sort_every=4,
+                       slot_resident=True, auto_rebuild=True,
+                       packed_scatter=True, device=dev)
+    grid = reuse_grid(scene, 4)
+    sg = ps.slot_grid(grid)
+
+    def overflow(st):
+        return int(ps.build_addr(st.x, st.active, grid, sg).overflow)
+
+    over, n_start = overflow(state), int(state.n_active())
+    viol = healed = rebuilds = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(n_steps // spd):
+        state, v, h, r = adv(state)
+        viol, healed, rebuilds = viol + int(v), healed + h, rebuilds + r
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    fetches = dict(step_mod.FETCHES)
+    peak = torch.cuda.max_memory_allocated()
+    over = max(over, overflow(state))
+    hl = health(state, scene)
+    emit({"phase": "path", "preset": "dam3d_100k", "steps": n_steps,
+          "run": {"steps_per_dispatch": spd, **RESIDENT,
+                  "auto_rebuild": True, "packed_scatter": True},
+          **hl, "particles_at_start": n_start,
+          "ms_per_step": wall / n_steps * 1e3,
+          "ms_per_step_note": "host clock over the advance's dispatches",
+          "peak_bytes": peak, "launches": launches, "overflow": over,
+          "policy": {"viol": viol, "healed": healed, "rebuilds": rebuilds},
+          "host_fetches": {
+              **fetches,
+              "per_block": fetches["fetches"] / max(fetches["blocks"], 1)},
+          "final_step": int(state.step)})
+    check_health(name, hl, n_start, over, (0.90, 1.10))
+    check(viol == 0, f"no skin or cap violation at {name}")
+    want = n_steps + 4 * healed
+    check(launches["slot_density"] == launches["slot_force"] == want,
+          f"K1/K2 launched {want} times at {name}")
+
+
+def phase_options_agreement(dev, n_steps: int = 20):
+    """The kernel options against the default at dam3d_100k after
+    `n_steps`: row_pair bitwise, per step and resident; xsub=2 resident
+    within 1e-3 h; the packed_scatter transport within 3 x 2^-10 cell and
+    rho within 1%: one bf16 round trip of a cell-relative coordinate
+    (|x - center| < cell/2) moves it by at most 2^-10 cell, above 1e-3 h;
+    in the absolute frame it would move by up to 0.5 at x ~ 160."""
+    from sph_tpu_torch import init, make_advance, preset, prime, run
+    from sph_tpu_torch.neighbors import GridSpec
+
+    scene = preset("dam3d_100k")
+    h = scene.params.h
+    i0 = init(scene, device=dev)
+    out = {}
+    for label, kw in (("per step", {}), ("resident4auto", RESIDENT)):
+        a = run(scene, n_steps, method="pallas", state=i0, device=dev, **kw)
+        b = run(scene, n_steps, method="pallas", state=i0, device=dev,
+                row_pair=True, **kw)
+        out[f"row_pair {label}"] = same = bool(
+            torch.equal(a.x, b.x) and torch.equal(a.v, b.v)
+            and torch.equal(a.rho, b.rho))
+        check(same, f"row_pair bitwise the default, {label}")
+    base = run(scene, n_steps, method="pallas", state=i0, device=dev,
+               **RESIDENT)
+    xs = run(scene, n_steps, method="pallas", state=i0, device=dev, xsub=2,
+             **RESIDENT)
+    dx_xsub = float((xs.x - base.x).abs().max())
+    out["xsub=2 max_abs_dx"] = dx_xsub
+    check(dx_xsub < 1e-3 * h, "xsub=2 within 1e-3 h of the default")
+    s0 = prime(scene, i0, "pallas", device=dev)
+    kw = dict(steps_per_dispatch=n_steps, sort_every=4, slot_resident=True,
+              auto_rebuild=True, device=dev)
+    ref, _, h0, r0 = make_advance(scene, "pallas", **kw)(s0)
+    pk, viol, h1, r1 = make_advance(scene, "pallas", packed_scatter=True,
+                                    **kw)(s0)
+    cell = GridSpec.for_scene(scene).cell
+    dx_limit, rho_limit = 3 * 2.0 ** -10 * cell, 1e-2
+    dx_pk = float((pk.x - ref.x).abs().max())
+    rho_pk = float(torch.max(torch.abs(pk.rho / ref.rho - 1.0)))
+    out.update({"packed_scatter max_abs_dx": dx_pk,
+                "packed_scatter rho_max_rel": rho_pk,
+                "packed_scatter counters": [int(viol), h1, r1],
+                "default counters": [h0, r0]})
+    emit({"phase": "agreement", "preset": "dam3d_100k", "steps": n_steps,
+          "limits": {"xsub": 1e-3 * h, "packed_scatter_dx": dx_limit,
+                     "packed_scatter_rho": rho_limit}, **out})
+    check(int(viol) == 0 and (h1, r1) == (h0, r0),
+          "packed_scatter keeps the default's counters")
+    check(dx_pk < dx_limit and rho_pk < rho_limit,
+          "packed_scatter within 3 x 2^-10 cell and rho within 1%")
+
+
+def sass_opcodes(lib_path: Path) -> dict:
+    """{kernel: {opcode: count}} of the probe kernels, from
+    `cuobjdump -sass` on the built library."""
+    from sph_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = ("probe_bf16" if "bf16" in m.group(1) else "probe_fp32"
+                  if "f32" in m.group(1) else None)
+            if fn:
+                out[fn] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                      line)
+        if fn and m:
+            out[fn][m.group(1)] = out[fn].get(m.group(1), 0) + 1
+    return out
+
+
+def phase_probe(dev):
+    """P1: both kernels bitwise their plain chain on U[0,1) inputs and on
+    the probe's own (y = x + 2, all inf); then the probe's entry point
+    (`probe_vpu_bf16.main(50)`), counted; plain times; SASS evidence."""
+    from sph_tpu_torch import _build, probe_vpu_bf16 as pr
+
+    gen = torch.Generator(device=dev).manual_seed(67)
+    uni = [torch.rand((pr.SUB, pr.LANE), generator=gen, device=dev)
+           for _ in range(2)]
+    res, checks = {}, {}
+    for dt, name in ((torch.float32, "probe_fp32"),
+                     (torch.bfloat16, "probe_bf16")):
+        for kind, (x, y) in (("uniform", [u.to(dt) for u in uni]),
+                             ("probe", pr.probe_inputs(dt, dev))):
+            got, want = pr.probe(x, y), pr.chain_plain(x, y)
+            torch.cuda.synchronize()
+            fin = bool(torch.isfinite(got).all())
+            inf = bool(torch.isinf(got).all())
+            same = bool(torch.equal(got, want))
+            checks[f"{name} {kind}"] = {"bitwise": same, "all_finite": fin,
+                                        "all_inf": inf}
+            check(same and (fin if kind == "uniform" else inf),
+                  f"{name} bitwise its plain chain on {kind} inputs")
+        x, y = pr.probe_inputs(dt, dev)
+        res[name] = {"max_abs_err": 0.0,
+                     "plain_ms": cuda_ms(lambda: pr.chain_plain(x, y), n=5,
+                                         warm=1)}
+    reset_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        timing = pr.main(50)
+    launches = read_counts()
+    for name, key in (("probe_fp32", "fp32"), ("probe_bf16", "bf16")):
+        t = timing[key]
+        res[name].update(launches=launches["probe_f32" if key == "fp32"
+                                            else "probe_bf16"],
+                         ms=t["ms"], direct_ms=t["direct_ms"],
+                         top_s=t["ops_per_s"] / 1e12,
+                         bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+    check(res["probe_fp32"]["launches"] == res["probe_bf16"]["launches"]
+          == 200, "the probe's run ran each kernel 4 x 50 times (warm-up, "
+          "two graph replays, direct launches)")
+    ops = sass_opcodes(_build._LOADED["probe_kernels"].path)
+    bf16_packed = sorted(k for k in ops.get("probe_bf16", {})
+                         if re.match(r"H(ADD|MUL|FMA|MNMX|MIN|MAX)2.*BF16", k))
+    check(bool(bf16_packed), "packed bf16 instructions in the bf16 kernel")
+    check("FFMA" not in ops.get("probe_fp32", {}),
+          "no FFMA in the fp32 probe kernel")
+    emit({"phase": "sass", "kernels": ops, "packed_bf16_opcodes": bf16_packed})
+    emit({"phase": "probe", "checks": checks,
+          "printed": printed.getvalue().strip().splitlines(),
+          "ratio_bf16_over_fp32": timing["ratio"],
+          "sm_clock_mhz": timing["sm_clock_mhz"], "sms": timing["sms"],
+          "kernels": res})
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -896,6 +1310,58 @@ def main() -> int:
         phase_profile_resident(name, scene, sph.init(scene, device=dev),
                                n_prof, dev)
 
+    # this slice: the kernel options that are off by default, and P1
+    at_bf16 = {p: phase_kernels_bf16(p, dev)
+               for p in ("dam3d_100k", "splash3d_1m")}
+    at_xsub = phase_kernels_xsub("dam3d_100k", dev)
+    for name in ("dam3d_100k", "splash3d_1m"):
+        scene_b, n_steps = bf16_scene(sph.preset(name)), DEPTH[name]
+        primes = int(scene_b.params.integrator == "leapfrog")
+        runs[f"bf16:{name}"] = phase_path(
+            f"{name} bf16", scene_b, sph.init(scene_b, device=dev), n_steps,
+            dev, want={"slot_density_bf16": n_steps + primes,
+                       "slot_force_bf16": n_steps + primes,
+                       "slot_density": 0, "slot_force": 0},
+            rho_band=(0.90, 1.10))
+        out = runs[f"bf16 resident:{name}"] = phase_path(
+            f"{name} bf16", scene_b, sph.init(scene_b, device=dev), n_steps,
+            dev, run_kw=dict(RESIDENT), rho_band=(0.90, 1.10))
+        launches, want = out["launches"], resident_launches(out, n_steps,
+                                                             primes)
+        check(launches["slot_density_bf16"] == launches["slot_force_bf16"]
+              == want and launches["slot_density"] == 0,
+              f"bf16 K1/K2 launched {want} times on bf16 resident4auto "
+              f"at {name}")
+        check(out["policy"]["repair_k"] == 0 == out["policy"]["repaired"],
+              f"repair_k resolves to 0 under bf16 at {name}")
+    phase_bf16_agreement(dev)
+
+    scene, n_steps = sph.preset("dam3d_100k"), DEPTH["dam3d_100k"]
+    phase_packed_scatter(dev, n_steps)
+    options = {
+        "xsub": phase_path(
+            "dam3d_100k", scene, sph.init(scene, device=dev), n_steps, dev,
+            run_kw=dict(xsub=2), want={"slot_density": n_steps + 1,
+                                       "slot_force": n_steps + 1},
+            rho_band=(0.90, 1.10)),
+    }
+    for opt in ("xsub", "row_pair"):
+        options[f"{opt} resident"] = phase_path(
+            "dam3d_100k", scene, sph.init(scene, device=dev), n_steps, dev,
+            run_kw=dict(RESIDENT, **{opt: 2 if opt == "xsub" else True}),
+            rho_band=(0.90, 1.10))
+    for opt, out in options.items():
+        if "policy" not in out:
+            continue
+        want = resident_launches(out, n_steps, 1)
+        check(out["launches"]["slot_density"]
+              == out["launches"]["slot_force"] == want,
+              f"K1/K2 launched {want} times on {opt} at dam3d_100k")
+        check(out["policy"]["repair_k"] == 0,
+              f"no repair on {opt} (the reference's gates)")
+    phase_options_agreement(dev)
+    probe_res = phase_probe(dev)
+
     def resident(name):
         return {"resident4auto": {
             p: runs[f"resident:{p}"]["launches"][name]
@@ -914,7 +1380,23 @@ def main() -> int:
             "at_settled": {"preset": "emitters3d@settled",
                            "launches": runs["reuse"]["launches"][name],
                            **at["emitters3d@settled"][name]},
+            "with_xsub": {"preset": "dam3d_100k",
+                          "launches": options["xsub"]["launches"][name],
+                          **at_xsub[name]},
             **resident(name),
+        })
+        bname = f"{name}_bf16"
+        kernels.append({
+            "name": bname, "route": "cuda", "source": SOURCE[bname],
+            "replaces": REPLACES[bname],
+            "launches": runs["bf16:dam3d_100k"]["launches"][bname],
+            **at_bf16["dam3d_100k"][bname], "library_ms": None,
+            "at_scale": {"preset": "splash3d_1m",
+                         "launches": runs["bf16:splash3d_1m"]["launches"][bname],
+                         **at_bf16["splash3d_1m"][bname]},
+            "resident4auto": {
+                p: runs[f"bf16 resident:{p}"]["launches"][bname]
+                for p in ("dam3d_100k", "splash3d_1m")},
         })
     for name in ("packed_density", "packed_force"):
         kernels.append({
@@ -937,6 +1419,12 @@ def main() -> int:
                      **stage["splash3d_1m"][0]},
         **resident(name),
     })
+    for name in ("probe_fp32", "probe_bf16"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], **probe_res[name],
+            "library_ms": None,
+        })
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

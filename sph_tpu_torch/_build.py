@@ -33,10 +33,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes per exported function of each library
 SIGNATURES = {
     "slot_kernels": {
-        "slot_density": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                         _I, _I, _F, _F, _F, _F, _I, _P),
-        "slot_force": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                       _F, _F, _F, _I, _P),
+        "slot_density": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
+        "slot_force": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _F, _F, _F, _I, _P),
     },
     "packed_kernels": {
         "packed_density": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -46,6 +46,10 @@ SIGNATURES = {
     },
     "stage_kernels": {
         "stage_transpose": (_P, _P, _I, _I, _I, _P),
+    },
+    "probe_kernels": {
+        "probe_f32": (_P, _P, _P, _I, _I, _P),
+        "probe_bf16": (_P, _P, _P, _I, _I, _P),
     },
 }
 

@@ -30,8 +30,8 @@ class GridSpec:
     cell: float               # cell edge length: support radius h + skin
     shape: tuple[int, ...]    # cells per axis
     cap: int                  # max particles per cell
-    xsub: int = 1             # x-cell subdivision of the slot layout; the
-    #                           port supports 1 only (ROADMAP Queue 1 item 15)
+    xsub: int = 1             # x-cell subdivision of the slot layout
+    #                           (slot-cells of cap/xsub, `pallas_step`)
 
     @property
     def dim(self) -> int:

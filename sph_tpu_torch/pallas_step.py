@@ -10,14 +10,18 @@ Layout, kept from the reference so per-particle results compare one to one:
      routes to row 0, whose features annihilate every pair term, so the
      kernels need no validity masks.
   2. One scatter packs per-particle features [x | v] into
-     feat[c_rows, FEAT, lanes]: feature axis in the middle, (x-cell · cap)
-     on the lanes, with a one-group (128-lane) x halo on each side so every
-     ±1-cell candidate window is in bounds.  `staged=True` scatters into a
+     feat[c_rows, FEAT, lanes]: feature axis in the middle, (x slot-cell ·
+     cap) on the lanes, with a one-group (128-lane) x halo on each side so
+     every candidate window is in bounds.  `GridSpec.xsub` > 1 splits each
+     x cell into xsub slot-cells of cap/xsub slots; the candidate margin is
+     then xsub slot-cells, one full cell.  With `precision="bf16"` the
+     features are bf16, positions relative to the build-time cell center
+     (`SlotAddr.center`, `_rel_rows`).  `staged=True` scatters into a
      feature-minor staging array instead and transposes it with K5
      (`stage_kernels.py`, `csrc/stage_kernels.cu`); the result is the same.
   3. The density kernel (K1) reads the 3^(D-1) neighbor rows of each row
-     through the int32 table `nbr_pos[R, c_rows]`, sums poly6 over the ±1
-     x-cells, applies the EOS, and writes lane-major (rho, p) rows
+     through the int32 table `nbr_pos[R, c_rows]`, sums poly6 over the
+     ±xsub x slot-cells, applies the EOS, and writes lane-major (rho, p) rows
      rp[c_rows, 2, lanes].  The force kernel (K2) streams the same rows of
      feat and rp and writes f[c_rows, FOUT, lanes].  Both are hand-written
      CUDA (`slot_kernels.py`, `csrc/slot_kernels.cu`); on CPU tensors they
@@ -69,8 +73,10 @@ class SlotGrid:
     """
 
     inner: tuple[int, ...]   # GridSpec.shape
-    cap: int                 # slot-cell capacity; must divide 128
+    cap: int                 # slot-cell capacity (cap / xsub); divides 128
     c_rows: int              # compacted-row capacity incl. dummy row 0
+    cell: float = 0.0        # GridSpec.cell (the bf16 features' frame)
+    xsub: int = 1            # x slot-cells per cell (GridSpec.xsub)
     packed: bool = False     # packed-row layout: a row's particles occupy
     #                          lanes 0..count-1 (pos = within-row rank)
     row_lanes: int = 0       # packed: static per-row particle capacity
@@ -94,8 +100,8 @@ class SlotGrid:
         return self.inner[-2] + 2
 
     @property
-    def h2(self) -> int:     # x cells per row incl. one-group halos
-        return _round_up(self.inner[-1], self.xc) + 2 * self.xc
+    def h2(self) -> int:     # x slot-cells per row incl. one-group halos
+        return _round_up(self.inner[-1] * self.xsub, self.xc) + 2 * self.xc
 
     @property
     def n_groups(self) -> int:
@@ -125,15 +131,24 @@ def _c_rows(grid: GridSpec, c_rows: int | None) -> int:
     return min(c_rows, inner_rows) + 1  # +1: reserved dummy row 0
 
 
-def slot_grid(grid: GridSpec, c_rows: int | None = None) -> SlotGrid:
-    if grid.xsub != 1:
-        raise NotImplementedError(
-            "xsub > 1 is not ported yet (ROADMAP.md Queue 1 item 15)"
-        )
-    if LANE % grid.cap != 0:
-        raise ValueError(f"the slot path needs cap | 128, got {grid.cap}")
-    return SlotGrid(inner=grid.shape, cap=grid.cap,
-                    c_rows=_c_rows(grid, c_rows))
+def slot_grid(grid: GridSpec, c_rows: int | None = None,
+              row_pair: bool = False) -> SlotGrid:
+    if grid.cap % grid.xsub != 0:
+        raise ValueError(
+            f"cap {grid.cap} must be divisible by xsub {grid.xsub}")
+    cap_slot = grid.cap // grid.xsub
+    if LANE % cap_slot != 0:
+        raise ValueError(
+            f"the slot path needs slot cap | 128, got {cap_slot} "
+            f"(cap {grid.cap} / xsub {grid.xsub})")
+    c_rows = _c_rows(grid, c_rows)
+    if row_pair and c_rows % 2:
+        # the reference maps two rows to one Pallas program and pads c_rows
+        # even; the CUDA kernels run a thread per slot and need only the
+        # padding, which the addressing follows
+        c_rows += 1
+    return SlotGrid(inner=grid.shape, cap=cap_slot, c_rows=c_rows,
+                    cell=grid.cell, xsub=grid.xsub)
 
 
 def packed_grid(grid: GridSpec, row_lanes: int | None = None,
@@ -150,6 +165,7 @@ def packed_grid(grid: GridSpec, row_lanes: int | None = None,
         inner=grid.shape,
         cap=grid.cap,     # kept for GridSpec parity/audit surfaces only
         c_rows=_c_rows(grid, c_rows),
+        cell=grid.cell,
         packed=True,
         row_lanes=_round_up(row_lanes, LANE),
     )
@@ -187,8 +203,7 @@ class SlotAddr:
     (or once per `sort_every` block: positions may then go stale by up to
     skin/2, see GridSpec.for_scene).
     Every field is equal, element for element, to the reference's
-    (`sph_tpu.pallas_step.SlotAddr`; its `center` field serves only the
-    bf16 features, which are not ported)."""
+    (`sph_tpu.pallas_step.SlotAddr`)."""
 
     pos: torch.Tensor        # [N] i32 lane position hx·cap + rank
     #   (packed rows: the stable rank within the (z, y) row)
@@ -202,6 +217,9 @@ class SlotAddr:
     overflow: torch.Tensor   # [] i32 particles dropped by the static caps
     row_code: torch.Tensor   # [c_rows] i32 halo (z, y) row code of each
     #   compacted row (entry 0 = dummy)
+    center: torch.Tensor     # [N, D] fp32 center of the cell
+    #   (in x: slot-cell) each particle was binned into at build time — the
+    #   bf16 cell-relative frame, fixed for the whole reuse window
 
     def ok(self) -> torch.Tensor:
         """[N] bool — the particle has a slot (in a cell, within both caps)."""
@@ -229,7 +247,20 @@ def build_addr(x: torch.Tensor, active: torch.Tensor, grid: GridSpec,
         pos = rank
         gx = torch.clamp(rank, max=sg.lanes - 1) // LANE
     else:
-        hx = ci[:, -1] + sg.xc                 # one-group x halo
+        if sg.xsub == 1:
+            sx = ci[:, -1]
+        else:
+            # the xsub-subdivided lattice, clamped into the full cell ci
+            # assigned (so rounding between the two floors can never split
+            # row and lane binning); divides by a device scalar, as
+            # cell_index does
+            lo_x = device_const(grid.lo[-1], x.dtype, dev)
+            cell_x = device_const(grid.cell / sg.xsub, x.dtype, dev)
+            sxf = torch.floor((x[:, -1] - lo_x) / cell_x).to(i32)
+            base_sx = ci[:, -1] * sg.xsub
+            sx = torch.minimum(torch.maximum(sxf, base_sx),
+                               base_sx + (sg.xsub - 1))
+        hx = sx + sg.xc                        # one-group x halo
         n_hrows = sg.h0 * sg.h1 * sg.h2
         hrow = code * sg.h2 + hx
         hrow = torch.where(in_cell, hrow, n_hrows)
@@ -294,10 +325,18 @@ def build_addr(x: torch.Tensor, active: torch.Tensor, grid: GridSpec,
     nbr_pos = row_inv[nbr_idx.long()]
     # the dummy row's own neighbors stay the dummy row
     nbr_pos[:, 0] = 0
+    lo = device_const(grid.lo, x.dtype, dev)
+    cell = device_const(grid.cell, x.dtype, dev)
+    center = lo + (ci.to(x.dtype) + 0.5) * cell
+    if sg.xsub > 1:    # x: the slot-cell center (the lane binning)
+        cx = (device_const(grid.lo[-1], x.dtype, dev)
+              + (sx.to(x.dtype) + 0.5)
+              * device_const(grid.cell / sg.xsub, x.dtype, dev))
+        center = torch.cat([center[:, :-1], cx[:, None]], dim=1)
     return SlotAddr(
         pos=pos, valid=valid, row_pos=row_pos, gcounts=gcounts,
         n_occ=n_occ, nbr_pos=nbr_pos.contiguous(), overflow=overflow,
-        row_code=codes_ext,
+        row_code=codes_ext, center=center,
     )
 
 
@@ -310,6 +349,15 @@ def _flat_slot_idx(addr: SlotAddr, sg: SlotGrid, ncols: int, dump: int):
     base = addr.row_pos.long() * (FEAT * sg.lanes) + addr.pos.long()
     cols = torch.arange(ncols, device=base.device) * sg.lanes
     return torch.where(ok[:, None], base[:, None] + cols[None, :], dump)
+
+
+def _rel_rows(x, v, addr: SlotAddr) -> torch.Tensor:
+    """bf16 feature rows (precision="bf16"): positions relative to the
+    center of the cell the ADDR binned the particle into, velocities
+    absolute, both rounded to bf16 (RTNE, as the reference's astype).
+    The build-time frame, because under reuse the slot's lane still
+    encodes that cell after the particle drifts across a cell edge."""
+    return _pack_rows6(x - addr.center, v).to(torch.bfloat16)
 
 
 def _init_row(dtype, device) -> torch.Tensor:
@@ -334,8 +382,10 @@ def stage_rows(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid):
 
 def scatter_slots(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid,
                   staged: bool = False):
-    """Scatter packed [N, ncols] rows → feat [c_rows, FEAT, lanes]; empty
-    slots hold the far-away row (1e18, 1e18, 1e18, 0, ...).
+    """Scatter packed [N, ncols] rows → feat [c_rows, FEAT, lanes] of the
+    rows' dtype (fp32, or bf16 rows from `_rel_rows`); empty slots hold the
+    far-away row (1e18, 1e18, 1e18, 0, ...), in bf16 ≈9.98e17, still above
+    the kernels' 1e17 empty test.
 
     staged=True: pad the rows to FEAT columns, scatter each particle's row
     into a feature-minor staging array [c_rows·lanes, FEAT] (its features
@@ -353,6 +403,41 @@ def scatter_slots(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid,
     idx = _flat_slot_idx(addr, sg, rows.shape[1], size)
     flat.index_put_((idx.reshape(-1),), rows.reshape(-1))
     return feat
+
+
+def pack2bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two fp32 arrays → one fp32-typed array whose bits are
+    bf16(a) << 16 | bf16(b), RTNE.  Transport only: the value means
+    nothing.  Built by views (the low half first in memory), no shifts."""
+    halves = torch.stack([b.to(torch.bfloat16), a.to(torch.bfloat16)], dim=-1)
+    return halves.view(torch.float32).squeeze(-1)
+
+
+def unpack2bf16(p: torch.Tensor):
+    """Inverse of pack2bf16: packed fp32 → (a, b) fp32 (bf16-valued)."""
+    halves = p.contiguous().unsqueeze(-1).view(torch.bfloat16)
+    return halves[..., 1].float(), halves[..., 0].float()
+
+
+def scatter_slots_packed(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid,
+                         bg_row: torch.Tensor) -> torch.Tensor:
+    """scatter_slots for a non-feat column layout: [N, ncols] rows →
+    [c_rows, ncols, lanes], empty slots filled with `bg_row` ([ncols]) —
+    the packed-bf16 rebuild transport of the resident advance.  The bits
+    move as int32, so a packed value is never read as a float on the way."""
+    ncols = rows.shape[1]
+    bits = rows.view(torch.int32)
+    size = sg.c_rows * ncols * sg.lanes
+    base = addr.row_pos.long() * (ncols * sg.lanes) + addr.pos.long()
+    idx = torch.where(
+        addr.ok()[:, None],
+        base[:, None] + torch.arange(ncols, device=rows.device) * sg.lanes,
+        size)
+    flat = bg_row.view(torch.int32)[:, None].expand(
+        ncols, sg.lanes).repeat(sg.c_rows, 1).reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(1)])   # the dump of the slotless
+    flat.index_put_((idx.reshape(-1),), bits.reshape(-1))
+    return flat[:size].view(torch.float32).view(sg.c_rows, ncols, sg.lanes)
 
 
 def slot_overflow(x, active, grid: GridSpec, sg: SlotGrid):
@@ -388,7 +473,8 @@ def _call_density(feat, addr: SlotAddr, sg: SlotGrid, params: SimParams,
             feat, addr.n_occ, addr.nbr_pos, jb, addr.gcounts, params
         )
     return slot_kernels.slot_density(
-        feat, addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params
+        feat, addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params,
+        sg.xsub, sg.cell,
     )
 
 
@@ -402,7 +488,8 @@ def _call_force(feat, rp, addr: SlotAddr, sg: SlotGrid, params: SimParams,
             feat, rp, addr.n_occ, addr.nbr_pos, jb, addr.gcounts, params
         )
     return slot_kernels.slot_force(
-        feat, rp, addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params
+        feat, rp, addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params,
+        sg.xsub, sg.cell,
     )
 
 
@@ -441,22 +528,28 @@ def pallas_rho_p_f(
     addr: SlotAddr | None = None,
     packed_rows: bool = False,
     row_lanes: int | None = None,
+    row_pair: bool = False,
 ):
     """Per-particle (rho, p, f) through the slot kernels.
 
     `addr` (a SlotAddr from build_addr) reuses a neighbor structure built at
     an earlier step — valid while every particle has moved < skin/2 since it
-    was built (GridSpec.for_scene skin; step.make_advance sort_every).
-    `packed_rows` selects the packed-row layout (the addr must then come
-    from a packed build too)."""
+    was built (GridSpec.for_scene skin; step.make_advance sort_every); under
+    `precision="bf16"` it must carry its `center`.  `packed_rows` selects
+    the packed-row layout (the addr must then come from a packed build
+    too); `row_pair` pads c_rows even (`slot_grid`)."""
     d = x.shape[1]
+    bf16 = params.precision == "bf16"
     if packed_rows:
+        if bf16:
+            raise ValueError("packed rows do not compose with bf16 features")
         sg = packed_grid(grid, row_lanes, c_rows)
     else:
-        sg = slot_grid(grid, c_rows)
+        sg = slot_grid(grid, c_rows, row_pair=row_pair)
     if addr is None:
         addr = build_addr(x, active, grid, sg)
-    feat = scatter_slots(addr, _pack_rows6(x, v), sg)
+    rows = _rel_rows(x, v, addr) if bf16 else _pack_rows6(x, v)
+    feat = scatter_slots(addr, rows, sg)
     jb = _jblocks(addr, sg) if sg.packed else None   # once for K3 and K4
     rp_slot = _call_density(feat, addr, sg, params, jb)
     f_slot = _call_force(feat, rp_slot, addr, sg, params, jb)

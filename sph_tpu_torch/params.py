@@ -48,9 +48,12 @@ class SimParams:
     kernel_norm: str = "legacy3d"   # "proper" | "legacy3d" (2D codes reusing 3D consts)
 
     precision: str = "fp32"         # "fp32" | "bf16" — bf16 stores the pallas
-    # candidate features (x, v) in bfloat16 with cell-relative positions.
-    # The port runs fp32 only; "bf16" raises NotImplementedError in
-    # step.make_step (ROADMAP.md Queue 1 item 15).
+    # candidate features (x, v) in bfloat16 with positions relative to the
+    # build-time cell center, fed to the bf16 branch of K1/K2; pair math,
+    # accumulation and the state stay fp32.  Affects only the pallas slot
+    # path (naive stays fp32; packed rows refuse it).  On the H100 the bf16
+    # kernels are slower than fp32 ones (PERF.md §6), so fp32 stays the
+    # default.
 
     boundary_mode: str = "clamp"    # "clamp" (reflect+damp) | "penalty" (spring-damper)
     boundary_damping: float = -0.5  # velocity multiplier on wall hit [clamp mode]

@@ -3,9 +3,10 @@ kernels in `csrc/slot_kernels.cu`, their plain PyTorch versions, and their
 launch counts.
 
 K1 replaces `_density_kernel` (sph_tpu/pallas_step.py:750) and K2
-`_force_kernel` (sph_tpu/pallas_step.py:837).  Both compute, for every
-real particle slot i of an occupied row, a sum over the candidate slots j of
-the 3^(D-1) neighbor rows × x-cells hx−1..hx+1 × cap:
+`_force_kernel` (sph_tpu/pallas_step.py:837), with every branch of both.
+They compute, for every real particle slot i of an occupied row, a sum over
+the candidate slots j of the 3^(D-1) neighbor rows × slot-cells
+hx−xm..hx+xm (xm = the grid's xsub) × cap:
 
   K1: ρ_i = m·c_poly6·Σ_j max(h² − r², 0)³ (self included), then p_i = EOS(ρ_i)
   K2: inv_r = 1/√max(r², 1e−24); t = max(h − r²·inv_r, 0);
@@ -13,14 +14,20 @@ the 3^(D-1) neighbor rows × x-cells hx−1..hx+1 × cap:
       f_i += (m/2)(p_i+p_j)/max(ρ_j, 1e−12)·s·(x_i−x_j)
              + μ·m/max(ρ_j, 1e−12)·c_v·t·(v_j−v_i)
 
+Features are fp32, or bf16 cell-relative (`precision="bf16"`): then each
+value is widened to fp32 and the static lattice offsets of the reference's
+frame are added back (`_frame_coords`), so every pair distance has the
+reference's bits; ρ, p and f stay fp32.
+
 Outputs are zero on row 0, rows past n_occ, groups with no real particle,
 the halo groups and empty slots.  The kernel and its plain version differ
 only in summation order.
 
 A wrapper given CUDA tensors launches its kernel (building it at first use)
 or raises; given CPU tensors it runs the plain version.  `LAUNCHES` counts
-kernel launches only.  What bounds the kernels on the card, and their
-design, is noted in the CUDA source; PERF.md holds their times.
+kernel launches only, the bf16 kernels apart.  What bounds the kernels on
+the card, and their design, is noted in the CUDA source; PERF.md holds their
+times.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ LANE = 128
 
 #: kernel launches per wrapper since the last `reset_launches()`; a run
 #: reads them to show that its path went through the kernels
-LAUNCHES = {"slot_density": 0, "slot_force": 0}
+LAUNCHES = {"slot_density": 0, "slot_force": 0,
+            "slot_density_bf16": 0, "slot_force_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -64,11 +72,14 @@ def _eos_args(params: SimParams) -> tuple:
             _f32(params.rest_density), _f32(b), _f32(params.tait_gamma))
 
 
-def _check(feat, n_occ, nbr_pos, gcounts, cap, extra=(), min_groups=3):
+def _check(feat, n_occ, nbr_pos, gcounts, cap, extra=(), min_groups=3,
+           feat_dtypes=(torch.float32,)):
     """Raise on arrays the kernels do not take.  `min_groups` is 3 for the
     slot layout (two x-halo groups and at least one interior group)."""
     dev = feat.device
-    for name, t, dtype in (("feat", feat, torch.float32),
+    if feat.dtype not in feat_dtypes:
+        raise TypeError(f"feat must be one of {feat_dtypes}, got {feat.dtype}")
+    for name, t, dtype in (("feat", feat, feat.dtype),
                            ("n_occ", n_occ, torch.int32),
                            ("nbr_pos", nbr_pos, torch.int32),
                            ("gcounts", gcounts, torch.int32), *extra):
@@ -103,7 +114,7 @@ def _raise_on(rc: int, name: str) -> None:
 # Plain PyTorch versions (the same function on the same arrays)
 # ---------------------------------------------------------------------------
 
-_SLOT_CHUNK = 16384  # i-slots per pass: bounds the [slots, R·3·cap] temporaries
+_SLOT_CHUNK = 16384  # i-slots per pass: bounds the [slots, R·W] temporaries
 
 
 def _live_slots(feat, n_occ, gcounts):
@@ -111,7 +122,7 @@ def _live_slots(feat, n_occ, gcounts):
     (x < 1e17) in occupied interior groups of rows 1..n_occ."""
     lanes = feat.shape[2]
     n = int(n_occ[0])
-    x0 = feat[1 : n + 1, 0]
+    x0 = feat[1 : n + 1, 0].float()
     occ = gcounts[1 : n + 1, 0].repeat_interleave(LANE, dim=1) > 0
     occ[:, :LANE] = False          # halo groups 0 and n_groups-1
     occ[:, lanes - LANE :] = False
@@ -119,37 +130,71 @@ def _live_slots(feat, n_occ, gcounts):
     return r + 1, lane
 
 
-def _chunks(feat, n_occ, nbr_pos, gcounts, cap: int):
+def _chunks(feat, n_occ, nbr_pos, gcounts, cap: int, xm: int = 1):
     """Per chunk of live i-slots: (row [m], lane [m], neighbor rows nr
-    [m, R], candidate lanes j [m, 3·cap] over the x-cells hx−1..hx+1).
-    `_take` reads the candidates in the kernels' order: neighbor row, then
-    x-cell, then slot."""
+    [m, R], candidate lanes j [m, W] over the slot-cells hx−xm..hx+xm,
+    W = (2·xm+1)·cap).  `_take` reads the candidates in the kernels' order:
+    neighbor row, then slot-cell, then slot."""
     rows, lanes_i = _live_slots(feat, n_occ, gcounts)
-    off = torch.arange(3 * cap, device=feat.device)
+    off = torch.arange((2 * xm + 1) * cap, device=feat.device)
     for a in range(0, rows.shape[0], _SLOT_CHUNK):
         row, lane = rows[a : a + _SLOT_CHUNK], lanes_i[a : a + _SLOT_CHUNK]
-        nr = nbr_pos[:, row].T.long()                      # [m, R]
-        j = (lane // cap - 1)[:, None] * cap + off[None, :]  # [m, 3·cap]
+        nr = nbr_pos[:, row].T.long()                        # [m, R]
+        j = (lane // cap - xm)[:, None] * cap + off[None, :]  # [m, W]
         yield row, lane, nr, j
 
 
 def _take(t, nr, j, c: int):
-    """t[nr, c, j] for a [c_rows, C, lanes] array → [m, R·3·cap]."""
+    """t[nr, c, j] for a [c_rows, C, lanes] array → [m, R·W], fp32."""
     _, n_c, lanes = t.shape
     idx = (nr[:, :, None] * n_c + c) * lanes + j[:, None, :]
-    return t.reshape(-1)[idx.reshape(idx.shape[0], -1)]
+    return t.reshape(-1)[idx.reshape(idx.shape[0], -1)].float()
 
 
-def density_plain(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams):
+def _frame_coords(feat, row, lane, nr, j, cap: int, dim: int, frame):
+    """(xi, xj): per coordinate, the i-slots' positions [m, 1] and their
+    candidates' [m, R·W] in fp32.  With a bf16 frame (cf, cfx) they are
+    rebuilt from the cell-relative values as the reference's
+    `_bf16_offsets` does: in x the origin is the first slot-cell of i's
+    128-lane group, i adds (lane_in_group // cap)·cfx and j (its slot-cell −
+    the group's first)·cfx; in y and z, j adds (dy, dz)·cf of its neighbor
+    row — each value and offset summed with one fp32 rounding."""
+    xi = [feat[row, c, lane].float()[:, None] for c in range(dim)]
+    xj = [_take(feat, nr, j, c) for c in range(dim)]
+    if frame is None:
+        return xi, xj
+    cf, cfx = frame
+    (m, n_r), w = nr.shape, j.shape[1]
+
+    def per_cand(off):  # [m or 1, R or 1, W or 1] → [m, R·W]
+        return off.expand(m, n_r, w).reshape(m, n_r * w)
+
+    xi[-1] = xi[-1] + ((lane % LANE) // cap).float()[:, None] * cfx
+    cell0 = (lane // LANE) * (LANE // cap)                # group's first
+    xj[-1] = xj[-1] + per_cand(
+        ((j // cap) - cell0[:, None]).float()[:, None, :] * cfx)
+    s = torch.arange(n_r, device=feat.device)
+    dy = s % 3 - 1 if dim == 3 else s - 1
+    xj[dim - 2] = xj[dim - 2] + per_cand(dy.float()[None, :, None] * cf)
+    if dim == 3:
+        xj[0] = xj[0] + per_cand((s // 3 - 1).float()[None, :, None] * cf)
+    return xi, xj
+
+
+def density_plain(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
+                  xsub: int = 1, cell: float | None = None):
     """Plain version of K1 → rp [c_rows, 2, lanes]."""
     c_rows, _, lanes = feat.shape
+    frame = _frame(feat, cell, xsub)
     c_p, _, _ = kernel_constants(params.dim, params.h, params.kernel_norm)
     h2, mc = params.h * params.h, params.mass * c_p
-    rp = torch.zeros((c_rows, 2, lanes), dtype=feat.dtype, device=feat.device)
-    for row, lane, nr, j in _chunks(feat, n_occ, nbr_pos, gcounts, cap):
+    rp = torch.zeros((c_rows, 2, lanes), dtype=torch.float32,
+                     device=feat.device)
+    for row, lane, nr, j in _chunks(feat, n_occ, nbr_pos, gcounts, cap, xsub):
+        xi, xj = _frame_coords(feat, row, lane, nr, j, cap, params.dim, frame)
         r2 = None
         for c in range(params.dim):
-            dc = feat[row, c, lane][:, None] - _take(feat, nr, j, c)
+            dc = xi[c] - xj[c]
             r2 = dc * dc if r2 is None else r2 + dc * dc
         q = torch.clamp(h2 - r2, min=0.0)
         rho = mc * torch.sum(q * q * q, dim=1)
@@ -159,16 +204,18 @@ def density_plain(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams):
 
 
 def force_plain(feat, rp, n_occ, nbr_pos, gcounts, cap: int,
-                params: SimParams):
+                params: SimParams, xsub: int = 1, cell: float | None = None):
     """Plain version of K2 → f [c_rows, FOUT, lanes]."""
     c_rows, _, lanes = feat.shape
+    frame = _frame(feat, cell, xsub)
     _, c_s, c_v = kernel_constants(params.dim, params.h, params.kernel_norm)
     h = params.h
     m_half, mu_m = params.mass * 0.5, params.viscosity * params.mass
-    f = torch.zeros((c_rows, FOUT, lanes), dtype=feat.dtype, device=feat.device)
-    for row, lane, nr, j in _chunks(feat, n_occ, nbr_pos, gcounts, cap):
-        dx = [feat[row, c, lane][:, None] - _take(feat, nr, j, c)
-              for c in range(params.dim)]
+    f = torch.zeros((c_rows, FOUT, lanes), dtype=torch.float32,
+                    device=feat.device)
+    for row, lane, nr, j in _chunks(feat, n_occ, nbr_pos, gcounts, cap, xsub):
+        xi, xj = _frame_coords(feat, row, lane, nr, j, cap, params.dim, frame)
+        dx = [xi[c] - xj[c] for c in range(params.dim)]
         r2 = dx[0] * dx[0]
         for c in range(1, params.dim):
             r2 = r2 + dx[c] * dx[c]
@@ -180,7 +227,7 @@ def force_plain(feat, rp, n_occ, nbr_pos, gcounts, cap: int,
         coef_p = m_half * (p_i + _take(rp, nr, j, 1)) * inv_rho_j * s_r
         coef_v = mu_m * inv_rho_j * (c_v * t)
         for c in range(params.dim):
-            v_i = feat[row, 3 + c, lane][:, None]
+            v_i = feat[row, 3 + c, lane].float()[:, None]
             f[row, c, lane] = torch.sum(
                 coef_p * dx[c] + coef_v * (_take(feat, nr, j, 3 + c) - v_i),
                 dim=1,
@@ -193,11 +240,38 @@ def force_plain(feat, rp, n_occ, nbr_pos, gcounts, cap: int,
 # ---------------------------------------------------------------------------
 
 
-def slot_density(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams):
-    """K1 → rp [c_rows, 2, lanes] (rho, EOS p), lane-major."""
-    _check(feat, n_occ, nbr_pos, gcounts, cap)
+def _frame(feat, cell, xsub: int):
+    """The bf16 frame's offsets (fp32(cell), fp32(cell / xsub)), None for
+    fp32 features.  `cell / xsub` is a Python double rounded once to fp32,
+    as the reference's `jnp.float32(cell / xm)`."""
+    if feat.dtype == torch.float32:
+        return None
+    if cell is None:
+        raise ValueError("bf16 features need the grid's cell (their frame)")
+    return _f32(cell), _f32(cell / xsub)
+
+
+def _check_slot(feat, n_occ, nbr_pos, gcounts, cap, xsub, extra=()):
+    _check(feat, n_occ, nbr_pos, gcounts, cap, extra=extra,
+           feat_dtypes=(torch.float32, torch.bfloat16))
+    if not 1 <= xsub <= LANE // cap:
+        raise ValueError(f"x margin {xsub} outside 1..{LANE // cap}")
+
+
+def _name(base: str, feat) -> str:
+    return base + ("_bf16" if feat.dtype == torch.bfloat16 else "")
+
+
+def slot_density(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
+                 xsub: int = 1, cell: float | None = None):
+    """K1 → rp [c_rows, 2, lanes] (rho, EOS p), lane-major.  `xsub` is the
+    grid's x subdivision (the candidate margin in slot-cells); `cell` the
+    grid's cell, needed by bf16 features."""
+    _check_slot(feat, n_occ, nbr_pos, gcounts, cap, xsub)
     if feat.device.type == "cpu":
-        return density_plain(feat, n_occ, nbr_pos, gcounts, cap, params)
+        return density_plain(feat, n_occ, nbr_pos, gcounts, cap, params,
+                             xsub, cell)
+    frame = _frame(feat, cell, xsub) or (0.0, 0.0)
     lib = _build.library("slot_kernels")
     c_rows, _, lanes = feat.shape
     c_p, _, _ = kernel_constants(params.dim, params.h, params.kernel_norm)
@@ -206,23 +280,29 @@ def slot_density(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams):
     rc = lib.slot_density(
         feat.data_ptr(), nbr_pos.data_ptr(), gcounts.data_ptr(),
         n_occ.data_ptr(), rp.data_ptr(), c_rows, lanes, gcounts.shape[-1],
-        cap, nbr_pos.shape[0], params.dim, _f32(params.h * params.h),
-        _f32(params.mass * c_p), *eos, feat.device.index or 0,
+        cap, xsub, nbr_pos.shape[0], params.dim,
+        int(feat.dtype == torch.bfloat16), _f32(params.h * params.h),
+        _f32(params.mass * c_p), *eos, *frame, feat.device.index or 0,
         _stream(feat.device),
     )
-    _raise_on(rc, "slot_density")
-    LAUNCHES["slot_density"] += 1
+    name = _name("slot_density", feat)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return rp
 
 
-def slot_force(feat, rp, n_occ, nbr_pos, gcounts, cap: int, params: SimParams):
-    """K2 → f [c_rows, FOUT, lanes], lane-major (components >= D zero)."""
-    _check(feat, n_occ, nbr_pos, gcounts, cap,
-           extra=(("rp", rp, torch.float32),))
+def slot_force(feat, rp, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
+               xsub: int = 1, cell: float | None = None):
+    """K2 → f [c_rows, FOUT, lanes], lane-major (components >= D zero);
+    `xsub` and `cell` as for `slot_density`."""
+    _check_slot(feat, n_occ, nbr_pos, gcounts, cap, xsub,
+                extra=(("rp", rp, torch.float32),))
     if rp.shape != (feat.shape[0], 2, feat.shape[2]):
         raise ValueError(f"rp has shape {tuple(rp.shape)}")
     if feat.device.type == "cpu":
-        return force_plain(feat, rp, n_occ, nbr_pos, gcounts, cap, params)
+        return force_plain(feat, rp, n_occ, nbr_pos, gcounts, cap, params,
+                           xsub, cell)
+    frame = _frame(feat, cell, xsub) or (0.0, 0.0)
     lib = _build.library("slot_kernels")
     c_rows, _, lanes = feat.shape
     _, c_s, c_v = kernel_constants(params.dim, params.h, params.kernel_norm)
@@ -230,10 +310,12 @@ def slot_force(feat, rp, n_occ, nbr_pos, gcounts, cap: int, params: SimParams):
     rc = lib.slot_force(
         feat.data_ptr(), rp.data_ptr(), nbr_pos.data_ptr(), gcounts.data_ptr(),
         n_occ.data_ptr(), f.data_ptr(), c_rows, lanes, gcounts.shape[-1], cap,
-        nbr_pos.shape[0], params.dim, _f32(params.h), _f32(c_s),
-        _f32(params.mass * 0.5), _f32(params.viscosity * params.mass),
-        _f32(c_v), feat.device.index or 0, _stream(feat.device),
+        xsub, nbr_pos.shape[0], params.dim, int(feat.dtype == torch.bfloat16),
+        _f32(params.h), _f32(c_s), _f32(params.mass * 0.5),
+        _f32(params.viscosity * params.mass), _f32(c_v), *frame,
+        feat.device.index or 0, _stream(feat.device),
     )
-    _raise_on(rc, "slot_force")
-    LAUNCHES["slot_force"] += 1
+    name = _name("slot_force", feat)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return f

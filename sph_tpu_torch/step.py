@@ -10,13 +10,14 @@ Ported: `method="naive"`, and `method="pallas"` on the slot layout or on
 packed rows, per step, with Verlet-skin address reuse (`sort_every > 1`,
 audited, with an exact re-run), and slot-resident (`slot_resident=True`):
 the classic resident block with or without heal, and the auto-rebuild
-resident advance with its membership-relaxed rebuild predicate, heal and
-minority slot repair, under `make_audited_advance`'s policies (constant-heal
-demotion, the packed-row auto policy).  The reference branches inside its
-scan with `lax.cond`; here each such decision is one fetch to the host at a
-block boundary (`FETCHES` counts them).  The options of the reference that
-reach beyond that raise NotImplementedError naming the ROADMAP.md item that
-brings them.
+resident advance with its membership-relaxed rebuild predicate, heal,
+minority slot repair and the packed_scatter transport, under
+`make_audited_advance`'s policies (constant-heal demotion, the packed-row
+auto policy); each with the kernel options `precision="bf16"`, `xsub` and
+`row_pair`.  The reference branches inside its scan with `lax.cond`; here
+each such decision is one fetch to the host at a block boundary (`FETCHES`
+counts them).  The options of the reference that reach beyond that raise
+NotImplementedError naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ def _not_ported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported yet " + _ROADMAP.format(item))
 
 
-def _check_slice(scene: Scene, method: str, *, adaptive_cap: bool = False,
-                 shards=None, row_pair: bool = False, xsub: int = 1) -> None:
+def _check_slice(method: str, *, adaptive_cap: bool = False,
+                 shards=None) -> None:
     """Raise for every option the port does not have yet."""
     if method == "grid":
         raise _not_ported("method='grid'", 6)
@@ -52,20 +53,15 @@ def _check_slice(scene: Scene, method: str, *, adaptive_cap: bool = False,
         raise _not_ported("adaptive_cap (the cap-8 policy)", 16)
     if shards:
         raise _not_ported("shards (domain decomposition)", 14)
-    if row_pair:
-        raise _not_ported("row_pair", 15)
-    if xsub > 1:
-        raise _not_ported("xsub > 1", 15)
-    if scene.params.precision == "bf16":
-        raise _not_ported("precision='bf16'", 15)
 
 
 def _check_packed(scene: Scene, method: str, *, xsub: int = 1,
-                  row_pair: bool = False, repair_k: int | None = 0) -> None:
+                  row_pair: bool = False, repair_k: int | None = 0,
+                  packed_scatter: bool = False) -> None:
     """The reference's gates on `packed_rows=True`."""
     if method != "pallas":
         raise ValueError("packed_rows requires method='pallas'")
-    if xsub != 1 or row_pair:
+    if xsub != 1 or row_pair or packed_scatter:
         raise ValueError(
             "packed_rows does not compose with xsub, row_pair, or "
             "packed_scatter"
@@ -100,7 +96,8 @@ def _fetch(*ts: torch.Tensor) -> list:
 
 
 def _rho_p_f(x, v, active, scene: Scene, method: str, grid=None, step=None,
-             addr=None, packed_rows: bool = False, row_lanes=None):
+             addr=None, packed_rows: bool = False, row_lanes=None,
+             row_pair: bool = False):
     """Density → EOS → pairwise forces + gravity + wall penalty + external
     force fields, one x eval.  Returns (rho, p, f); `addr` (pallas only)
     reuses a prebuilt slot addressing (sort_every Verlet-skin reuse)."""
@@ -114,7 +111,7 @@ def _rho_p_f(x, v, active, scene: Scene, method: str, grid=None, step=None,
         # per-particle results; the CUDA kernels skip empty slots anyway
         rho, p, f = pallas_step.pallas_rho_p_f(
             x, v, active, params, grid, addr=addr, packed_rows=packed_rows,
-            row_lanes=row_lanes,
+            row_lanes=row_lanes, row_pair=row_pair,
         )
     f = f + physics.gravity_force(rho, params)
     if params.boundary_mode == "penalty":
@@ -146,14 +143,16 @@ def make_step(
 
     method: "naive" (O(N²)) | "pallas" (slot layout with kernels K1/K2, or
     packed rows with K3/K4 when `packed_rows`).
-    `grid` overrides the default GridSpec (cap tuning, skinned cells).
-    with_addr (pallas only): the returned function is
+    `grid` overrides the default GridSpec (cap tuning, skinned cells,
+    xsub).  with_addr (pallas only): the returned function is
     `step(state, addr) -> state`, reusing a prebuilt SlotAddr (sort_every).
+    row_pair (pallas): the reference's two-rows-a-program layout; here it
+    only pads c_rows even (`pallas_step.slot_grid`).
     """
-    xsub = grid.xsub if grid is not None else 1
     if packed_rows:
-        _check_packed(scene, method, xsub=xsub, row_pair=row_pair)
-    _check_slice(scene, method, row_pair=row_pair, xsub=xsub)
+        _check_packed(scene, method, row_pair=row_pair,
+                      xsub=grid.xsub if grid is not None else 1)
+    _check_slice(method)
     if with_addr and method != "pallas":
         raise ValueError("with_addr requires method='pallas'")
     dev = resolve_device(device)
@@ -176,14 +175,16 @@ def make_step(
             x = x + dt * v * mov
             rho, p, f = _rho_p_f(x, v, active, scene, method, grid,
                                  step=state.step, addr=addr,
-                                 packed_rows=packed_rows, row_lanes=row_lanes)
+                                 packed_rows=packed_rows, row_lanes=row_lanes,
+                                 row_pair=row_pair)
             a = f / torch.clamp(rho, min=1e-12)[:, None]
             v = v + (0.5 * dt) * a * mov
         else:
             # Semi-implicit (symplectic) Euler: v += dt f/ρ; x += dt v.
             rho, p, f = _rho_p_f(x, v, active, scene, method, grid,
                                  step=state.step, addr=addr,
-                                 packed_rows=packed_rows, row_lanes=row_lanes)
+                                 packed_rows=packed_rows, row_lanes=row_lanes,
+                                 row_pair=row_pair)
             a = f / torch.clamp(rho, min=1e-12)[:, None]
             v = v + dt * a * mov
             x = x + dt * v * mov
@@ -216,7 +217,7 @@ def prime(scene: Scene, state: State, method: str = "naive",
     cold start from acc = 0 shifts the trajectory by half a step.  `run`
     calls this automatically at step 0.
     """
-    _check_slice(scene, method)
+    _check_slice(method)
     _on(state, resolve_device(device))
     grid = _grid_for(scene, method, None)
     active = state.active
@@ -516,6 +517,7 @@ class _SlotPhysics:
         f32 = torch.float32
         self.scene = scene
         self.params = params
+        self.grid = grid
         self.sg = sg
         self.d = d = params.dim
         self.g3 = device_const(tuple(params.gravity), f32, device).reshape(
@@ -557,6 +559,42 @@ class _SlotPhysics:
         vs2 = torch.where(hit, vs * self.params.boundary_damping, vs)
         xs2 = torch.minimum(torch.maximum(xs, self.lo_w), self.hi_w)
         return torch.where(movb, xs2, xs), torch.where(movb, vs2, vs)
+
+    def slot_centers(self, addr):
+        """[c_rows, d, lanes] fp32 cell centers of every slot, from the
+        slot's lane (x slot-cell) and its row's code (z, y cells): the bf16
+        cell-relative frame, bitwise `SlotAddr.center` of the particle in
+        the slot.  The row code counts the halo, hence − 0.5."""
+        grid, sg, d = self.grid, self.sg, self.d
+        f32 = torch.float32
+        dev = addr.row_code.device
+        lo = [device_const(grid.lo[a], f32, dev) for a in range(d)]
+        cell = device_const(grid.cell, f32, dev)
+        lane = torch.arange(sg.lanes, dtype=torch.int32, device=dev)
+        cx = lo[-1] + ((lane // sg.cap - sg.xc).to(f32) + 0.5) * device_const(
+            grid.cell / sg.xsub, f32, dev)
+        code = addr.row_code
+        shape = (sg.c_rows, 1, sg.lanes)
+        rows = ([code // sg.h1, code % sg.h1] if d == 3 else [code])
+        parts = [(lo[a] + (r.to(f32) - 0.5) * cell)[:, None, None].expand(shape)
+                 for a, r in enumerate(rows)]
+        return torch.cat(parts + [cx[None, None, :].expand(shape)], dim=1)
+
+    def bf16_feat_builder(self, addr):
+        """The kernels' per-step bf16 view of the slot state: positions
+        relative to the slot centers, velocities absolute, rounded to bf16
+        (the fp32 state itself never leaves fp32)."""
+        sg, d = self.sg, self.d
+        dev = addr.row_code.device
+        centers = self.slot_centers(addr)
+        zrow = torch.zeros((sg.c_rows, 3 - d, sg.lanes), device=dev)
+        z2 = torch.zeros((sg.c_rows, 2, sg.lanes), device=dev)
+
+        def mk_feat(xs_, vs_):
+            return torch.cat([xs_ - centers, zrow, vs_, zrow, z2],
+                             dim=1).to(torch.bfloat16)
+
+        return mk_feat
 
     @staticmethod
     def gather(slot, ncomp: int, addr):
@@ -686,7 +724,7 @@ def _make_resident_advance(
     dt = params.dt
     d = params.dim
     half2 = (0.5 * skin) ** 2
-    use_mem = membership_audit
+    use_mem = membership_audit and sg.xsub == 1
     leap = params.integrator == "leapfrog"
     dev = resolve_device(device)
     sp = _SlotPhysics(scene, grid, sg, dev)
@@ -703,12 +741,15 @@ def _make_resident_advance(
         for _ in range(blocks):
             FETCHES["blocks"] += 1
             c = _residency(s, grid, sg, d, dt, leap, use_mem)
-            feat0 = c["feat"]
-            pad = feat0[:, d:3, :] * 0.0
-            tail = feat0[:, 6:, :]
+            if params.precision == "bf16":
+                mk_feat = sp.bf16_feat_builder(c["addr"])
+            else:
+                feat0 = c["feat"]
+                pad = feat0[:, d:3, :] * 0.0
+                tail = feat0[:, 6:, :]
 
-            def mk_feat(xs_, vs_):  # pad + flag columns never change
-                return torch.cat([xs_, pad, vs_, pad, tail], dim=1)
+                def mk_feat(xs_, vs_):  # pad + flag columns never change
+                    return torch.cat([xs_, pad, vs_, pad, tail], dim=1)
 
             c.update(acc=None, rp=None)
             xs, vs, a_s, rp, viol_blk = _slot_steps(
@@ -735,7 +776,8 @@ def _make_resident_advance(
 def _make_resident_auto_advance(
     scene: Scene, grid, sg, sort_every: int, blocks: int, skin: float,
     rebuild_frac: float = 1.0, reactive_theta: float | None = None,
-    membership_audit: bool = True, repair_k: int = 0, device=None,
+    membership_audit: bool = True, repair_k: int = 0,
+    packed_scatter: bool = False, device=None,
 ):
     """AUTO-REBUILD slot-resident advance: the state stays in the slot
     arrays ACROSS block boundaries, and the build_addr + scatter +
@@ -763,6 +805,12 @@ def _make_resident_auto_advance(
     (`make_repair_tools`), instead of a full rebuild; it falls back to the
     rebuild when an emitter activated or it cannot re-home exactly.
 
+    packed_scatter: a rebuild transports x (relative to the build-time
+    cell centers) and v as bf16 pairs packed into fp32-typed columns
+    (`pallas_step.pack2bf16`, `scatter_slots_packed`), 4 scatter columns
+    in 3D instead of 7, unpacked right after; the kernels stay fp32 and
+    each rebuild costs one bf16 round trip of x and v.
+
     The reference decides each block inside its scan with `lax.cond`; here
     the decisions are fetched to the host, batched: the next block's `need`
     is computed on the un-healed carry beside this block's audit count and
@@ -776,7 +824,7 @@ def _make_resident_auto_advance(
     dt = params.dt
     d = params.dim
     half2 = (0.5 * skin) ** 2
-    use_mem = membership_audit
+    use_mem = membership_audit and sg.xsub == 1
     budget = rebuild_frac * 0.5 * skin if rebuild_frac > 0 else 0.0
     leap = params.integrator == "leapfrog"
     if repair_k:
@@ -784,6 +832,8 @@ def _make_resident_auto_advance(
             raise ValueError(
                 "repair_k requires membership_audit=True and xsub == 1"
             )
+        if params.precision == "bf16":
+            raise ValueError("repair_k does not support precision='bf16'")
         if reactive_theta is not None or rebuild_frac <= 0:
             raise ValueError(
                 "repair_k composes with the membership predicate only "
@@ -793,14 +843,50 @@ def _make_resident_auto_advance(
     sp = _SlotPhysics(scene, grid, sg, dev)
     exact_step = make_step(scene, "pallas", device=dev)  # heal: bare grid
     zrow = torch.zeros((sg.c_rows, 3 - d, sg.lanes), device=dev)
+    if packed_scatter:
+        # background: x halves unpack far (≈ the 1e18 empty sentinel), v
+        # and the movable flag 0
+        far, zero = (torch.full((), a, device=dev) for a in (1e18, 0.0))
+        bg_halves = [far] * d + [zero] * d
+        bg_row = torch.stack(
+            [pallas_step.pack2bf16(bg_halves[2 * i], bg_halves[2 * i + 1])
+             for i in range(d)] + [zero])
+
+    def residency_packed(s: State) -> dict:
+        """`_residency` through the packed-bf16 transport: x relative to
+        the build-time cell centers and v travel as bf16 pairs, and the
+        slot arrays are unpacked to fp32 (x back on the slot centers)."""
+        act0 = s.active
+        movable0 = act0 & (s.kind == 0)
+        addr = pallas_step.build_addr(s.x, act0, grid, sg)
+        movf = movable0[:, None].to(torch.float32)
+        v_in = s.v + (0.5 * dt) * s.acc * movf if leap else s.v
+        xr = s.x - addr.center
+        halves = [xr[:, i] for i in range(d)] + [v_in[:, i] for i in range(d)]
+        cols = [pallas_step.pack2bf16(halves[2 * i], halves[2 * i + 1])
+                for i in range(d)] + [movf[:, 0]]
+        packed = pallas_step.scatter_slots_packed(
+            addr, torch.stack(cols, dim=1), sg, bg_row)
+        flat = [h for i in range(d)
+                for h in pallas_step.unpack2bf16(packed[:, i, :])]
+        xs = torch.stack(flat[:d], dim=1) + sp.slot_centers(addr)
+        return dict(
+            addr=addr, xs=xs, vs=torch.stack(flat[d:], dim=1), x0s=xs,
+            movb=packed[:, d:d + 1, :] > 0,
+            refs=_slot_bin_refs(addr, sg) if use_mem else None,
+            jb=None, step0=s.step,
+        )
 
     def enter_slots(s: State) -> dict:
         """Residency of `s`; acc/rho/p are not scattered — the first
         block's kick is pre-applied and its density pass overwrites rp —
         and until a block has run (`live`) the shadow `s` is the source of
         truth for them."""
-        c = _residency(s, grid, sg, d, dt, leap, use_mem)
-        del c["feat"]
+        if packed_scatter:
+            c = residency_packed(s)
+        else:
+            c = _residency(s, grid, sg, d, dt, leap, use_mem)
+            del c["feat"]
         c.update(acc=torch.zeros_like(c["xs"]),
                  rp=c["xs"].new_zeros((sg.c_rows, 2, sg.lanes)),
                  shadow=s, build_step=s.step, pend_over=c["addr"].overflow,
@@ -815,7 +901,10 @@ def _make_resident_auto_advance(
 
     def mk_feat_for(c):
         """The kernels' per-step feature view of the carry's xs/vs (the
-        pad and flag columns are fixed for the block)."""
+        pad and flag columns are fixed for the block); bf16: relative to
+        the slot centers of the carry's addressing."""
+        if params.precision == "bf16":
+            return sp.bf16_feat_builder(c["addr"])
         mov = c["movb"].to(torch.float32)
         tail = torch.cat([mov, torch.zeros_like(mov)], dim=1)
 
@@ -942,6 +1031,11 @@ def make_advance(
 ):
     """`advance(state) -> state` running `steps_per_dispatch` steps.
 
+    xsub > 1 (pallas, no `grid` given): the slot layout subdivides each x
+    cell into xsub slot-cells (`GridSpec.for_scene(xsub=)`); the audits then
+    fall back to the strict drift test, as in the reference.  row_pair: see
+    `make_step`.
+
     sort_every > 1 (pallas): Verlet-skin addr reuse — the returned advance
     is `advance(state) -> (state, skin_violation_count)`, the count a 0-d
     tensor on the state's device.  The slot addressing is built every
@@ -980,15 +1074,17 @@ def make_advance(
                 "packed_scatter composes with fp32 features only "
                 "(precision='bf16' already transports bf16 rows)"
             )
-        raise _not_ported("packed_scatter (the bf16-pair rebuild transport)",
-                          15)
     if packed_rows:
         _check_packed(scene, method, xsub=xsub, row_pair=row_pair,
-                      repair_k=repair_k)
-    _check_slice(scene, method, xsub=xsub, row_pair=row_pair)
+                      repair_k=repair_k, packed_scatter=packed_scatter)
+    _check_slice(method)
     if sort_every <= 1:
-        step = make_step(scene, method, grid=grid, packed_rows=packed_rows,
-                         row_lanes=row_lanes, device=device)
+        if grid is None and method == "pallas" and xsub > 1:
+            grid = neighbors.GridSpec.for_scene(scene, xsub=xsub)
+        step = make_step(scene, method, grid=grid,
+                         row_pair=row_pair and method == "pallas",
+                         packed_rows=packed_rows, row_lanes=row_lanes,
+                         device=device)
 
         def advance(state: State) -> State:
             for _ in range(steps_per_dispatch):
@@ -1014,11 +1110,12 @@ def make_advance(
         skin = default_skin(scene, sort_every)
     if grid is None:
         base = neighbors.GridSpec.for_scene(scene)
-        grid = neighbors.GridSpec.for_scene(scene, cap=base.cap, skin=skin)
+        grid = neighbors.GridSpec.for_scene(scene, cap=base.cap, skin=skin,
+                                            xsub=xsub)
     if packed_rows:
         sg = pallas_step.packed_grid(grid, row_lanes)
     else:
-        sg = pallas_step.slot_grid(grid)
+        sg = pallas_step.slot_grid(grid, row_pair=row_pair)
     blocks, rem = divmod(steps_per_dispatch, sort_every)
     if rem:
         raise ValueError(
@@ -1031,16 +1128,17 @@ def make_advance(
                 scene, grid, sg, sort_every, blocks, skin,
                 rebuild_frac=rebuild_frac, reactive_theta=reactive_theta,
                 membership_audit=membership_audit, repair_k=repair_k,
-                device=device,
+                packed_scatter=packed_scatter, device=device,
             )
         return _make_resident_advance(
             scene, grid, sg, sort_every, blocks, skin, heal=heal,
             membership_audit=membership_audit, device=device,
         )
     step_a = make_step(scene, "pallas", grid=grid, with_addr=True,
-                       packed_rows=packed_rows, row_lanes=row_lanes,
-                       device=device)
+                       row_pair=row_pair, packed_rows=packed_rows,
+                       row_lanes=row_lanes, device=device)
     half2 = (0.5 * skin) ** 2
+    use_mem = membership_audit and grid.xsub == 1
 
     def advance_reuse(state: State):
         viol = torch.zeros((), dtype=torch.int32, device=state.x.device)
@@ -1050,13 +1148,13 @@ def make_advance(
             # fold build-time cap overflow in with the skin violations: both
             # mean silently-degraded physics
             viol = viol + addr.overflow
-            if membership_audit:
+            if use_mem:
                 _, flat0 = neighbors.cell_index(x0, act0, grid)
             for _ in range(sort_every):
                 state = step_a(state, addr)
                 d = state.x - x0
                 bad = (torch.sum(d * d, dim=1) > half2) & act0
-                if membership_audit:
+                if use_mem:
                     # drift past skin/2 only degrades physics once the
                     # particle also bins outside its build cell
                     _, flat_i = neighbors.cell_index(state.x, act0, grid)
@@ -1187,8 +1285,7 @@ def make_audited_advance(
     "packed", "slot"), as the reference's does (`.rebuilds` is the port's
     own).  Its counters are host integers — the port takes the per-block
     decisions on the host — so reading them fetches nothing."""
-    _check_slice(scene, method, adaptive_cap=adaptive_cap, xsub=xsub,
-                 row_pair=row_pair)
+    _check_slice(method, adaptive_cap=adaptive_cap)
     auto = auto_rebuild and slot_resident and sort_every > 1
     packed_auto = (
         packed_rows is None and auto and bool(scene.emitters)
@@ -1362,6 +1459,8 @@ def run(
     membership_audit: bool = True,
     repair_k: int | None = None,
     packed_rows: bool | None = None,
+    xsub: int = 1,
+    row_pair: bool = False,
     device=None,
 ) -> State:
     """Top-level loop: seed (unless `state` is given), prime leapfrog at
@@ -1375,8 +1474,11 @@ def run(
     `sort_every=4, slot_resident=True`).  repair_k=None resolves to the
     production default (`default_repair_k`); packed_rows=None is the packed
     auto policy on emitter scenes of the resident path, the slot layout
-    elsewhere; True/False pin it."""
-    _check_slice(scene, method, adaptive_cap=adaptive_cap, shards=shards)
+    elsewhere; True/False pin it.  xsub and row_pair are the kernel
+    layout options of `make_audited_advance` (the reference reaches them
+    through `make_advance`; `run` passes them on, and the prime and the
+    exact re-runs keep the default layout, as there)."""
+    _check_slice(method, adaptive_cap=adaptive_cap, shards=shards)
     dev = resolve_device(device)
     if state is None:
         state = init(scene, device=dev)
@@ -1387,7 +1489,8 @@ def run(
         steps_per_dispatch = max(steps_per_dispatch, sort_every)
     n_disp, rem = divmod(n_steps, steps_per_dispatch)
     kw = dict(membership_audit=membership_audit, repair_k=repair_k,
-              packed_rows=packed_rows, device=dev)
+              packed_rows=packed_rows, xsub=xsub, row_pair=row_pair,
+              device=dev)
     advance = make_audited_advance(scene, method, steps_per_dispatch,
                                    sort_every=sort_every,
                                    slot_resident=slot_resident,

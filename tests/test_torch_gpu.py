@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1-K5) on a card against their plain PyTorch versions,
-and the port's paths through them.  Every test here is marked `gpu` and skips
+"""The CUDA kernels (K1-K5, P1) on a card against their plain PyTorch
+versions, and the port's paths through them.  Every test here is marked `gpu` and skips
 without a card (decided inside the test).  The file imports neither JAX
 nor `sph_tpu`, so it also runs where those are not installed:
 
@@ -17,6 +17,7 @@ import torch
 import sph_tpu_torch as port
 from sph_tpu_torch import neighbors, packed_kernels, slot_kernels, stage_kernels
 from sph_tpu_torch import pallas_step as ps
+from sph_tpu_torch import probe_vpu_bf16 as probe
 
 torch.set_num_threads(1)
 
@@ -29,7 +30,9 @@ def _card() -> torch.device:
     return torch.device("cuda")
 
 
-def _slots(dim, cap, kw, dev, n=3000, seed=51):
+def _slots(dim, cap, kw, dev, n=3000, seed=51, xsub=1):
+    """(params, sg, addr, feat) of a random cloud; `precision="bf16"` in
+    `kw` makes bf16 cell-relative features."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(-10.0, 170.0, (n, dim)).astype(np.float32)
     v = rng.uniform(-5.0, 5.0, (n, dim)).astype(np.float32)
@@ -37,12 +40,98 @@ def _slots(dim, cap, kw, dev, n=3000, seed=51):
     active[-n // 10:] = False
     params = port.SimParams(dim=dim, gravity=(0.0,) * dim, **kw)
     scene = port.Scene(params=params, lo=(0.0,) * dim, hi=(160.0,) * dim)
-    grid = neighbors.GridSpec.for_scene(scene, cap=cap)
+    grid = neighbors.GridSpec.for_scene(scene, cap=cap, xsub=xsub)
     sg = ps.slot_grid(grid)
     xt, vt, at = (torch.from_numpy(a).to(dev) for a in (x, v, active))
+    bf16 = params.precision == "bf16"
     addr = ps.build_addr(xt, at, grid, sg)
-    feat = ps.scatter_slots(addr, ps._pack_rows6(xt, vt), sg)
+    rows = ps._rel_rows(xt, vt, addr) if bf16 else ps._pack_rows6(xt, vt)
+    feat = ps.scatter_slots(addr, rows, sg)
     return params, sg, addr, feat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dim,cap,xsub,kw",
+    [(2, 16, 1, dict(precision="bf16")),
+     (3, 16, 1, dict(precision="bf16", eos="tait", kernel_norm="proper")),
+     (3, 16, 2, {}), (2, 64, 4, {}), (3, 16, 2, dict(precision="bf16"))],
+    ids=["2d-bf16", "3d-bf16-tait", "3d-xsub2", "2d-cap64-xsub4",
+         "3d-bf16-xsub2"],
+)
+def test_bf16_and_xsub_kernels_match_plain_versions(dim, cap, xsub, kw):
+    """The bf16 and xsub branches of K1/K2 against their plain versions
+    at the fp32 tolerances (the pair distances are rebuilt with the same
+    roundings on both sides), bf16 launches counted apart."""
+    params, sg, addr, feat = _slots(dim, cap, kw, _card(), xsub=xsub)
+    bf16 = feat.dtype == torch.bfloat16
+    args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params,
+            sg.xsub, sg.cell)
+    before = dict(slot_kernels.LAUNCHES)
+    rp = slot_kernels.slot_density(feat, *args)
+    f = slot_kernels.slot_force(feat, rp, *args)
+    rp_p = slot_kernels.density_plain(feat, *args)
+    f_p = slot_kernels.force_plain(feat, rp, *args)
+    torch.cuda.synchronize()
+    suffix = "_bf16" if bf16 else ""
+    for name in ("slot_density", "slot_force"):
+        assert slot_kernels.LAUNCHES[name + suffix] == before[name + suffix] + 1
+    ok = addr.ok()
+    rho, _ = ps._gather_rho(rp, addr, sg, params)
+    rho_p, _ = ps._gather_rho(rp_p, addr, sg, params)
+    assert torch.allclose(rho[ok], rho_p[ok], rtol=RHO_RTOL, atol=RHO_ATOL)
+    scale = float(f_p.abs().max())
+    assert scale > 0
+    assert float((f - f_p).abs().max()) / scale < FTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uniform", "probe"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_probe_kernels_bitwise_plain_version(dtype, kind):
+    """P1's kernels, bitwise the plain chain: finite on U[0,1), all inf on
+    the probe's own inputs."""
+    dev = _card()
+    if kind == "probe":
+        x, y = probe.probe_inputs(dtype, dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(61)
+        x, y = (torch.rand((probe.SUB, probe.LANE), generator=gen,
+                           device=dev).to(dtype) for _ in range(2))
+    before = dict(probe.LAUNCHES)
+    got = probe.probe(x, y)
+    want = probe.chain_plain(x, y)
+    torch.cuda.synchronize()
+    name = "probe_bf16" if dtype == torch.bfloat16 else "probe_f32"
+    assert probe.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(got, want)
+    assert bool(torch.isinf(got).all()) if kind == "probe" else bool(
+        torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+def test_probe_bench_counts_the_launches_that_run():
+    """`bench` runs `iters` launches four times (warm-up, two graph
+    replays, direct); the capture records launches and runs none."""
+    dev = _card()
+    probe.reset_launches()
+    probe.bench(torch.float32, 3, dev)
+    assert probe.LAUNCHES == {"probe_f32": 12, "probe_bf16": 0}
+
+
+@pytest.mark.gpu
+def test_bf16_run_on_card_goes_through_the_bf16_kernels():
+    dev = _card()
+    scene = port.preset("dam2d_10k")
+    scene = scene.replace(params=scene.params.replace(precision="bf16"))
+    slot_kernels.reset_launches()
+    state = port.run(scene, 8, method="pallas", sort_every=4,
+                     slot_resident=True, steps_per_dispatch=8, device=dev)
+    torch.cuda.synchronize()
+    assert slot_kernels.LAUNCHES["slot_density"] == 0
+    assert slot_kernels.LAUNCHES["slot_density_bf16"] >= 8
+    assert bool(torch.isfinite(state.x).all())
 
 
 @pytest.mark.gpu
@@ -89,7 +178,9 @@ def test_run_on_card_goes_through_the_kernels():
     slot_kernels.reset_launches()
     state = port.run(scene, 10, method="pallas", device=dev)
     torch.cuda.synchronize()
-    assert slot_kernels.LAUNCHES == {"slot_density": 10, "slot_force": 10}
+    assert slot_kernels.LAUNCHES == {"slot_density": 10, "slot_force": 10,
+                                     "slot_density_bf16": 0,
+                                     "slot_force_bf16": 0}
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.run(scene, 10, method="pallas", device="cpu")
     xs = host.x.abs().max()
@@ -193,7 +284,9 @@ def test_packed_run_on_card_goes_through_the_packed_kernels():
     # a leapfrog scene's prime at step 0 runs on the slot layout, as in the
     # reference; this Euler scene has none
     primes = int(scene.params.integrator == "leapfrog")
-    assert slot_kernels.LAUNCHES == {"slot_density": primes, "slot_force": primes}
+    assert slot_kernels.LAUNCHES == {"slot_density": primes, "slot_force": primes,
+                                     "slot_density_bf16": 0,
+                                     "slot_force_bf16": 0}
     assert packed_kernels.LAUNCHES == {"packed_density": 8, "packed_force": 8}
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.run(scene, 8, method="pallas", packed_rows=True, sort_every=4,
@@ -243,7 +336,9 @@ def test_production_default_on_card_goes_through_the_kernels():
     state = audited(port.init(scene, device=dev))
     torch.cuda.synchronize()
     want = 16 + 4 * audited.healed
-    assert slot_kernels.LAUNCHES == {"slot_density": want, "slot_force": want}
+    assert slot_kernels.LAUNCHES == {"slot_density": want, "slot_force": want,
+                                     "slot_density_bf16": 0,
+                                     "slot_force_bf16": 0}
     assert packed_kernels.LAUNCHES == {"packed_density": 0, "packed_force": 0}
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.make_audited_advance(scene, "pallas", 16, sort_every=4,

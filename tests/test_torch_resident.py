@@ -260,9 +260,13 @@ def test_resident_gates():
     with pytest.raises(ValueError, match="packed_scatter"):
         port.make_advance(scene, "pallas", sort_every=4, slot_resident=True,
                           packed_scatter=True, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        port.make_advance(scene, "pallas", sort_every=4, **AUTO_KW,
+    bf16 = scene.replace(params=scene.params.replace(precision="bf16"))
+    with pytest.raises(ValueError, match="fp32 features only"):
+        port.make_advance(bf16, "pallas", sort_every=4, **AUTO_KW,
                           packed_scatter=True, **kw)
+    with pytest.raises(ValueError, match="repair_k does not support"):
+        port.make_advance(bf16, "pallas", sort_every=4, **AUTO_KW,
+                          repair_k=8, **kw)
     with pytest.raises(ValueError, match="repair_k requires"):
         port.make_advance(scene, "pallas", sort_every=4, **AUTO_KW,
                           repair_k=8, membership_audit=False, **kw)

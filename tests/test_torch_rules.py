@@ -1,8 +1,8 @@
 """Rules of the port: `sph_tpu_torch` imports neither JAX nor `sph_tpu`,
 entry points never fall back to the CPU on their own, CPU tensors never
-count as kernel launches (K1-K5), non-CPU tensors never take the plain
-version, and options the port does not have yet raise NotImplementedError
-naming their ROADMAP.md item."""
+count as kernel launches (K1-K5, P1), non-CPU tensors never take the plain
+version, options the port does not have yet raise NotImplementedError
+naming their ROADMAP.md item, and the options it has run."""
 
 import subprocess
 import sys
@@ -34,12 +34,15 @@ def test_import_pulls_in_neither_jax_nor_sph_tpu():
         "import sys, sph_tpu_torch, sph_tpu_torch.step, "
         "sph_tpu_torch.pallas_step, sph_tpu_torch.slot_kernels, "
         "sph_tpu_torch.packed_kernels, sph_tpu_torch.stage_kernels, "
-        "sph_tpu_torch.diagnostics, sph_tpu_torch._build\n"
+        "sph_tpu_torch.diagnostics, sph_tpu_torch._build, "
+        "sph_tpu_torch.probe_vpu_bf16\n"
         "import pkgutil\n"
         "for m in pkgutil.iter_modules(sph_tpu_torch.__path__):\n"
         "    __import__('sph_tpu_torch.' + m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'sph_tpu' or m.startswith('sph_tpu.'))\n"
+        "bad += sorted(m for m in sys.modules if m == 'bench' "
+        "or m.startswith('bench.'))\n"
         "print(bad)\n"
         "assert not bad, bad\n"
     )
@@ -69,7 +72,7 @@ def test_cpu_run_leaves_launch_counts_at_zero():
     slot_kernels.reset_launches()
     state = port.run(_scene(), 3, method="pallas", device="cpu")
     assert int(state.step) == 3
-    assert slot_kernels.LAUNCHES == {"slot_density": 0, "slot_force": 0}
+    assert not any(slot_kernels.LAUNCHES.values())
     packed_kernels.reset_launches()
     state = port.run(_scene(), 4, method="pallas", packed_rows=True,
                      sort_every=2, state=state, device="cpu")
@@ -78,7 +81,7 @@ def test_cpu_run_leaves_launch_counts_at_zero():
     state = port.run(_scene(), 4, method="pallas", sort_every=2,
                      slot_resident=True, state=state, device="cpu")
     assert int(state.step) == 11
-    assert slot_kernels.LAUNCHES == {"slot_density": 0, "slot_force": 0}
+    assert not any(slot_kernels.LAUNCHES.values())
     stage_kernels.reset_launches()
     sg = tps.slot_grid(GridSpec.for_scene(_scene()))
     addr = tps.build_addr(state.x, state.active, GridSpec.for_scene(_scene()),
@@ -126,7 +129,7 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         slot_kernels.slot_force(feat, torch.empty((3, 2, 384), device=m),
                                 n_occ, nbr, gc, 16, p)
-    assert slot_kernels.LAUNCHES == {"slot_density": 0, "slot_force": 0}
+    assert not any(slot_kernels.LAUNCHES.values())
     packed_kernels.reset_launches()
     feat = torch.empty((3, 8, 256), device=m)
     jb = torch.empty((3,), dtype=torch.int32, device=m)
@@ -159,13 +162,9 @@ def test_wrappers_reject_malformed_slot_arrays():
                                 gc, 16, p)
 
 
-# The slot-resident paths themselves are ported; what stays out of the slice
-# around them: the bf16-pair scatter transport of the resident advance, the
-# resident path and its repair across slabs, and the audited cap-8 policy.
+# What stays out around the ported paths: the resident path and its repair
+# across slabs, and the audited cap-8 policy.
 OUT_OF_SLICE = {
-    "resident_packed": lambda s: port.make_advance(
-        s, "pallas", steps_per_dispatch=4, sort_every=4, slot_resident=True,
-        auto_rebuild=True, packed_scatter=True, device="cpu"),
     "slot_resident": lambda s: port.run(s, 4, "pallas", sort_every=4,
                                         slot_resident=True, shards=2,
                                         device="cpu"),
@@ -178,13 +177,6 @@ OUT_OF_SLICE = {
     "audited_resident": lambda s: port.make_audited_advance(
         s, "pallas", 8, sort_every=4, slot_resident=True, adaptive_cap=True,
         device="cpu"),
-    "row_pair": lambda s: port.make_step(s, "pallas", row_pair=True,
-                                         device="cpu"),
-    "xsub": lambda s: port.make_advance(s, "pallas", xsub=2, device="cpu"),
-    "xsub_grid": lambda s: tps.slot_grid(GridSpec.for_scene(s, xsub=2)),
-    "bf16": lambda s: port.make_step(
-        s.replace(params=s.params.replace(precision="bf16")), "pallas",
-        device="cpu"),
     "grid": lambda s: port.make_step(s, "grid", device="cpu"),
 }
 
@@ -193,6 +185,39 @@ OUT_OF_SLICE = {
 def test_out_of_slice_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         OUT_OF_SLICE[option](_scene())
+
+
+def _bf16(s):
+    return s.replace(params=s.params.replace(precision="bf16"))
+
+
+# The kernel options that were out of the slice until ROADMAP.md Queue 1
+# item 15 was ported: each runs on the CPU now (each returns the state it
+# reached, or the slot grid it made).
+NOW_IN_SLICE = {
+    "resident_packed": lambda s, st: port.make_advance(
+        s, "pallas", steps_per_dispatch=4, sort_every=4, slot_resident=True,
+        auto_rebuild=True, packed_scatter=True, device="cpu")(st)[0],
+    "row_pair": lambda s, st: port.make_step(s, "pallas", row_pair=True,
+                                             device="cpu")(st),
+    "xsub": lambda s, st: port.make_advance(
+        s, "pallas", steps_per_dispatch=2, xsub=2, device="cpu")(st),
+    "xsub_grid": lambda s, st: tps.slot_grid(GridSpec.for_scene(s, xsub=2)),
+    "bf16": lambda s, st: port.make_step(_bf16(s), "pallas",
+                                         device="cpu")(st),
+}
+
+
+@pytest.mark.parametrize("option", sorted(NOW_IN_SLICE))
+def test_options_of_this_slice_run(option):
+    scene = _scene()
+    state = port.init(scene, device="cpu")
+    out = NOW_IN_SLICE[option](scene, state)
+    if option == "xsub_grid":
+        assert (out.xsub, out.cap) == (2, GridSpec.for_scene(scene).cap // 2)
+        return
+    assert int(out.step) > 0 and bool(torch.isfinite(out.x).all())
+    assert not torch.equal(out.x, state.x)
 
 
 def test_unknown_method_raises():
