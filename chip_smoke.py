@@ -7,17 +7,26 @@ Phases, each printed as one JSON line:
 
   1. card     nvidia-smi name and power limit, torch and CUDA versions
   2. build    nvcc builds of the slot and the packed-row kernels from csrc/
-              (side by side), with the -Xptxas -v register/spill lines
+              (side by side), with the -Xptxas -v register/spill lines, and
+              per K1/K2 kernel its registers, spills, shared memory and
+              block size
   3. kernels  at dam3d_100k and splash3d_1m (the slot arrays of step 0):
               K1 and K2 against their plain PyTorch versions on the same
               inputs (rho rtol 1e-5 atol 1e-6 per particle; f max-relative
               3e-5 — the reference suite's own tolerances between its paths,
-              summation order differs), CUDA-event times, and the bound
+              summation order differs), and bitwise against their simple
+              yardsticks (`slot_*_simple`, the first design), times of the
+              two in turns (launched from the host, as every kernel is
+              timed, and as a CUDA-graph replay), the bound (operations the
+              function needs: the full pair arithmetic only within h), and
+              the histogram of live i-slots per live 128-lane group; then the
+              same on the skinned lattice of sort_every=4 (the resident
+              arrays)
   4. kernels  at emitters3d@settled (the committed checkpoint of step
               260,000): K3 and K4 against their plain versions at the same
-              tolerances, times of K3, K4 and of K1, K2 on the slot layout
-              of the same state, their bounds, and the time of the smallest
-              launch; K3 and K4 twice, at the shapes of both packed paths:
+              tolerances, times of K3, K4 and of K1, K2 (with their
+              yardsticks, bitwise) on the slot layout of the same state,
+              their bounds, and the time of the smallest launch; K3 and K4 twice, at the shapes of both packed paths:
               addressing built on the per-step lattice, and on the skinned
               lattice of sort_every=4 (wider rows, more multi-block rows)
   5. path     run(preset("dam3d_100k"), 200, method="pallas") on the card:
@@ -67,12 +76,12 @@ Phases, each printed as one JSON line:
               step, busy share, host fetches per block
  19. kernels  precision="bf16" at dam3d_100k and splash3d_1m (step-0 slot
               arrays, bf16 cell-relative features): the bf16 K1/K2 against
-              their plain versions at phase 3's tolerances, times, bounds
-              (features at 2 B); per particle against the fp32 kernels
-              within the reference's bf16 tolerances (rho rtol 2e-2, f
+              their plain versions at phase 3's tolerances and bitwise
+              their yardsticks, times in turns, bounds (features at 2 B);
+              per particle against the fp32 kernels within the reference's bf16 tolerances (rho rtol 2e-2, f
               within 6e-2 of the fp32 force scale, tests/test_bf16.py)
  20. kernels  xsub=2 at dam3d_100k: K1/K2 with the xsub margin against their
-              plain versions, times, bounds
+              plain versions and bitwise their yardsticks, times, bounds
  21. path     bf16 per step and bf16 resident4auto at dam3d_100k (200
               steps) and splash3d_1m (20), with the health checks of phases
               5-6 and 14, repair_k resolving to 0, and the bf16 kernels
@@ -101,8 +110,10 @@ Phases, each printed as one JSON line:
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
-Any failed check raises and the script exits non-zero without the last
-line.  It imports neither JAX nor `sph_tpu`.
+Every path reads its launch counts through `read_counts`, which checks that
+no yardstick ran in it.  Any failed check
+raises and the script exits non-zero without the last line.  It imports
+neither JAX nor `sph_tpu`.
 """
 
 from __future__ import annotations
@@ -112,6 +123,7 @@ import io
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -123,21 +135,38 @@ import torch
 # outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-# fp32 operations per candidate pair, counted from the kernel source (3D):
-# K1: 3 sub, 3 mul + 2 add for r², h²−r², max, q³ (2 mul), accumulate;
-# K2: r² (8), max + sqrt + divide, r²·inv_r, h−, max, c_s·t·t·inv_r (3),
-#     max + divide for 1/ρ_j, p_i+p_j, coef_p (3), coef_v (3), and per
-#     component sub, 2 mul, 2 add (15)
-# K3 and K4 repeat K1's and K2's pair arithmetic; K4 takes 1/rho_j (max +
-# divide) once per staged lane, not per pair.  The bf16 K1/K2 add one
-# offset add per coordinate of the candidate (the upcast is a bit shift).  The pairs counted for a bound
-# are those the function needs (a particle against the particles of its +-1
-# cells on the per-step lattice), the same for both layouts of one state;
-# the candidates a kernel's own blocking visits beyond them are printed
-# beside the bound and are not part of it.
-OPS_PER_PAIR = {"slot_density": 13, "slot_force": 41,
-                "packed_density": 13, "packed_force": 39,
-                "slot_density_bf16": 16, "slot_force_bf16": 44}
+# fp32 operations the function needs, counted from the kernel source, per
+# candidate pair of real particles on the per-step lattice (a particle
+# against the particles of its +-1 cells, the same for both layouts of one
+# state; the candidates a kernel's own blocking visits beyond them are
+# printed beside the bound and are not part of it):
+#   every real pair: r² (dim sub, dim mul, dim - 1 add);
+#   a pair beyond h (r² >= h²): one compare more, since its term is exactly
+#     +-0 (tests/test_torch_skip.py);
+#   a pair within h, K1 and K3: h² - r², max, q³ (2 mul), accumulate (5);
+#     K2 and K4: max + sqrt + divide, r²·inv_r, h -, max, c_s·t·t·inv_r (3),
+#     p_i + p_j, coef_p (3), coef_v (3) (16), and per component sub, 2 mul,
+#     2 add (5 dim).
+# Once per particle, not per pair: K2's and K4's 1/max(rho_j, 1e-12) (max
+# + divide).  The bf16 K1/K2 add one frame offset per coordinate once per
+# real slot a staged block stages (`staged_slots`); the upcast is a shift.
+
+
+def ops_needed(name: str, dim: int, counts: dict, staged: int = 0) -> int:
+    """fp32 operations of kernel `name` on inputs with `counts` (see
+    `pair_counts`) and, for the bf16 kernels, `staged` staged real slots."""
+    r2 = 3 * dim - 1
+    far = counts["real"] - counts["near"]
+    if "density" in name:
+        n = counts["near"] * (r2 + 5)
+    else:
+        n = counts["near"] * (r2 + 16 + 5 * dim) + 2 * counts["particles"]
+    n += far * (r2 + 1)
+    if name.endswith("_bf16"):
+        n += dim * staged
+    return n
+
+
 REPLACES = {
     "slot_density": "sph_tpu/pallas_step.py:750 (_density_kernel)",
     "slot_force": "sph_tpu/pallas_step.py:837 (_force_kernel)",
@@ -204,6 +233,117 @@ def cuda_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n: int = N_TIMED) -> float:
+    """Device time per call of fn(): n calls captured in one CUDA graph,
+    its replay timed with CUDA events, so no host work sits between the
+    launches (a launch from Python costs ~30-40 us of host time, more than
+    some of these kernels take)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def in_turns(new, simple, rounds: int = 3) -> dict:
+    """Times of a staged kernel and its simple yardstick, taken in turns
+    (simple, new, new, simple) `rounds` times by two methods: `ms` and
+    `simple_ms` launch from the host and time with CUDA events, as
+    `cuda_ms` times every other kernel; `graph_ms` and `simple_graph_ms`
+    replay the launches as a CUDA graph (`graph_ms`).  Medians of each, the
+    ratio of the two kernels by each method, and every turn."""
+    turns = {"ms": [], "simple_ms": [], "graph_ms": [], "simple_graph_ms": []}
+    for _ in range(rounds):
+        for timer, key in ((cuda_ms, "ms"), (graph_ms, "graph_ms")):
+            for fn, pre in ((simple, "simple_"), (new, ""), (new, ""),
+                            (simple, "simple_")):
+                turns[pre + key].append(timer(fn))
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    return {**med, "simple_over_new": med["simple_ms"] / med["ms"],
+            "simple_over_new_graph": med["simple_graph_ms"] / med["graph_ms"],
+            "turns": turns}
+
+
+def bitwise(a, b) -> bool:
+    """Equal bit for bit (+0 and -0 apart)."""
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def hold_to_simple(where: str, feat, rp, f, args) -> None:
+    """The staged K1/K2 outputs `rp`, `f` bitwise their simple yardsticks'
+    on the same inputs (K2 of both on `rp`)."""
+    from sph_tpu_torch import slot_kernels as sk
+
+    rp_s = sk.slot_density_simple(feat, *args)
+    f_s = sk.slot_force_simple(feat, rp, *args)
+    torch.cuda.synchronize()
+    check(bitwise(rp, rp_s), f"K1 bitwise its yardstick at {where}")
+    check(bitwise(f, f_s), f"K2 bitwise its yardstick at {where}")
+
+
+def live_histogram(addr) -> dict:
+    """Live i-slots (real particles) per live 128-lane group of the occupied
+    rows: the work a staged block has for its threads, and the share of the
+    lanes of the warps they fill that hold one."""
+    n = int(addr.n_occ[0])
+    gc = addr.gcounts[1 : n + 1, 0, 1:-1].reshape(-1)
+    gc = gc[gc > 0].long()
+    edges = (1, 9, 17, 33, 49, 65, 97, 129)
+    hist = {f"{a}-{b - 1}": int(((gc >= a) & (gc < b)).sum())
+            for a, b in zip(edges[:-1], edges[1:])}
+    live = int(gc.sum())
+    return {"live_groups": int(gc.numel()), "live_slots": live,
+            "mean": live / max(int(gc.numel()), 1),
+            "median": float(gc.float().median()) if gc.numel() else 0.0,
+            "hist": hist,
+            "lanes_used_by_full_warps": live / max(
+                int(((gc + 31) // 32 * 32).sum()), 1)}
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per slot kernel (K1/K2, staged and simple, by dim and feature type)
+    its registers, spill bytes and static shared memory, from nvcc's
+    -Xptxas -v lines."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\S+?)'?(?: for|$)", line.strip())
+        if m:
+            k = re.search(r"(density_kernel_simple|force_kernel_simple|"
+                          r"staged_kernel)ILi(\d)E([tf])(?:Lb([01])E)?",
+                          m.group(1))
+            name = None
+            if k:
+                kind = {"0": ", K1", "1": ", K2", None: ""}[k.group(4)]
+                feat = "bf16" if k.group(3) == "t" else "float"
+                name = f"{k.group(1)}<{k.group(2)}, {feat}{kind}>"
+            if name:
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(m.group(1)),
+                             static_smem=int(sm.group(1)) if sm else 0)
+    return out
+
+
 def phase_build():
     from sph_tpu_torch import _build
 
@@ -216,6 +356,16 @@ def phase_build():
         emit({"phase": "build", "library": built.path.name,
               "seconds": built.seconds, "wall_seconds_all": wall,
               "ptxas": ptxas})
+    lib = all_built["slot_kernels"].lib
+    src = (Path(__file__).resolve().parent / SOURCE["slot_density"]).read_text()
+    emit({"phase": "build", "library": "slot_kernels", "kernels":
+          ptxas_summary(all_built["slot_kernels"].log),
+          "staged_block_threads": int(re.search(
+              r"constexpr int kThreads = (\d+);", src).group(1)),
+          "staged_dynamic_smem_bytes": {
+              f"{kind} cap {cap} xm {xm}": lib.slot_stage_bytes(force, cap, xm)
+              for kind, force in (("K1", 0), ("K2", 1))
+              for cap, xm in ((16, 1), (8, 2))}})
 
 
 def reuse_grid(scene, sort_every: int, xsub: int = 1):
@@ -240,16 +390,44 @@ def slot_inputs(scene, state, packed: bool = False, grid=None):
     return sg, addr, feat
 
 
-def real_pairs(feat, addr, sg) -> int:
-    """Candidate pairs of real particles the kernels must evaluate on these
-    inputs: each live i-slot against the real j-slots of its window."""
+def pair_counts(feat, addr, sg, params) -> dict:
+    """The work the function needs on these (fp32, xsub=1) inputs: `real`
+    candidate pairs of real particles (each live i-slot against the real
+    j-slots of its window), `near` those of them within h (r² < h²), and
+    the live i-slots (`particles`)."""
     from sph_tpu_torch import slot_kernels as sk
 
-    total = 0
-    for _, _, nr, j in sk._chunks(feat, addr.n_occ, addr.nbr_pos,
-                                  addr.gcounts, sg.cap):
-        total += int(torch.sum(sk._take(feat, nr, j, 0) < 1e17))
-    return total
+    h2 = params.h * params.h
+    real = near = particles = 0
+    for row, lane, nr, j in sk._chunks(feat, addr.n_occ, addr.nbr_pos,
+                                       addr.gcounts, sg.cap):
+        ok = sk._take(feat, nr, j, 0) < 1e17
+        r2 = 0.0
+        for c in range(params.dim):
+            dc = feat[row, c, lane].float()[:, None] - sk._take(feat, nr, j, c)
+            r2 = r2 + dc * dc
+        real += int(ok.sum())
+        near += int((ok & (r2 < h2)).sum())
+        particles += int(row.numel())
+    return {"real": real, "near": near, "particles": particles}
+
+
+def staged_slots(feat, addr, sg) -> int:
+    """Real slots the staged K1/K2 stage: for each live 128-lane group g of
+    an occupied row, those of lanes [g·128 - xm·cap, (g+1)·128 + xm·cap) in
+    each of its neighbor rows (a bf16 kernel widens and offsets each once)."""
+    lanes = feat.shape[2]
+    real = (feat[:, 0, :].float() < 1e17).int().cumsum(dim=1)
+    pc = torch.nn.functional.pad(real, (1, 0))              # [c_rows, lanes+1]
+    n = int(addr.n_occ[0])
+    rows, g = torch.nonzero(addr.gcounts[1 : n + 1, 0, 1:-1] > 0,
+                            as_tuple=True)
+    rows, g = rows + 1, g + 1                               # interior groups
+    m = sg.xsub * sg.cap
+    lo = (g * 128 - m).clamp(0, lanes)
+    hi = ((g + 1) * 128 + m).clamp(0, lanes)
+    nr = addr.nbr_pos[:, rows].long()                       # [R, live groups]
+    return int((pc[nr, hi] - pc[nr, lo]).sum())
 
 
 def packed_pairs(addr) -> tuple[int, int]:
@@ -262,11 +440,11 @@ def packed_pairs(addr) -> tuple[int, int]:
     return int((cnt * loop).sum()), int(loop[cnt > 0].max())
 
 
-def bound(name: str, feat, addr, sg, dim: int, pairs: int):
+def bound(name: str, feat, addr, sg, dim: int, counts: dict,
+          staged: int = 0):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the fp32 rate, from this run's inputs; `pairs` are the
-    pairs the function needs (`real_pairs` on the per-step lattice).  Slot
-    layout:
+    operations (`ops_needed` on `counts`, the work of the per-step lattice)
+    over the fp32 rate, from this run's inputs.  Slot layout:
     only the occupied rows 1..n_occ are read and written (the gathers read
     no other row, so the zeros the kernels write past n_occ are not
     counted).  Packed rows: only the occupied 128-lane blocks.  Features
@@ -281,13 +459,15 @@ def bound(name: str, feat, addr, sg, dim: int, pairs: int):
     else:                         # read x, v, rho and p, write f
         moved = n_lanes * (2 * dim * fb + 2 * 4 + dim * 4)
     t_bytes = moved / PEAK_BYTES_S * 1e3
-    t_ops = pairs * OPS_PER_PAIR[name] / PEAK_F32_S * 1e3
+    t_ops = ops_needed(name, dim, counts, staged) / PEAK_F32_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernels(preset_name: str, dev, state=None):
-    """K1 and K2 against their plain versions on the slot arrays of `state`
-    (default: the preset's step 0)."""
+def phase_kernels(preset_name: str, dev, state=None, grid=None,
+                  lattice: str = "per step"):
+    """K1 and K2 against their plain versions and bitwise their simple
+    yardsticks on the slot arrays of `state` (default: the preset's step 0)
+    built on `grid` (default: the per-step lattice)."""
     from sph_tpu_torch import init, pallas_step as ps, preset
     from sph_tpu_torch import slot_kernels as sk
 
@@ -295,8 +475,9 @@ def phase_kernels(preset_name: str, dev, state=None):
     params = scene.params
     if state is None:
         state = init(scene, device=dev)
-    sg, addr, feat = slot_inputs(scene, state)
+    sg, addr, feat = slot_inputs(scene, state, grid=grid)
     args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params)
+    where = f"{preset_name}, lattice {lattice}"
 
     rp_k = sk.slot_density(feat, *args)
     rp_p = sk.density_plain(feat, *args)
@@ -304,7 +485,7 @@ def phase_kernels(preset_name: str, dev, state=None):
     rho_k, ok = ps._gather_rho(rp_k, addr, sg, params)
     rho_p, _ = ps._gather_rho(rp_p, addr, sg, params)
     check(bool(torch.allclose(rho_k, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)),
-          f"K1 vs plain at {preset_name}")
+          f"K1 vs plain at {where}")
     f_k = sk.slot_force(feat, rp_k, *args)
     f_p = sk.force_plain(feat, rp_k, *args)
     torch.cuda.synchronize()
@@ -313,29 +494,34 @@ def phase_kernels(preset_name: str, dev, state=None):
     fp = ps._gather_f(f_p, addr, sg, d, ok)
     f_err = float(torch.max(torch.abs(fk - fp)))
     f_scale = float(torch.max(torch.abs(fp)))
-    check(f_err / f_scale < F_REL, f"K2 vs plain at {preset_name}")
+    check(f_err / f_scale < F_REL, f"K2 vs plain at {where}")
     check(bool(torch.isfinite(rho_k).all() and torch.isfinite(fk).all()),
-          f"finite kernel outputs at {preset_name}")
+          f"finite kernel outputs at {where}")
+    hold_to_simple(where, feat, rp_k, f_k, args)
 
-    pairs = real_pairs(feat, addr, sg)
+    # the pairs the function needs are those of the per-step lattice
+    sg1, addr1, feat1 = (slot_inputs(scene, state) if grid is not None
+                         else (sg, addr, feat))
+    counts = pair_counts(feat1, addr1, sg1, params)
     res = {}
-    for name, kern, plain, err in (
+    for name, kern, simple, plain, err in (
         ("slot_density", lambda: sk.slot_density(feat, *args),
+         lambda: sk.slot_density_simple(feat, *args),
          lambda: sk.density_plain(feat, *args),
          float(torch.max(torch.abs(rho_k - rho_p)))),
         ("slot_force", lambda: sk.slot_force(feat, rp_k, *args),
+         lambda: sk.slot_force_simple(feat, rp_k, *args),
          lambda: sk.force_plain(feat, rp_k, *args), f_err),
     ):
-        b_ms, b_by = bound(name, feat, addr, sg, d, pairs)
-        res[name] = {
-            "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
-    emit({"phase": "kernels", "preset": preset_name,
-          "c_rows": sg.c_rows, "lanes": sg.lanes, "n_groups": sg.n_groups,
+        b_ms, b_by = bound(name, feat, addr, sg, d, counts)
+        res[name] = {"max_abs_err": err, "bitwise_simple": True,
+                     **in_turns(kern, simple), "plain_ms": cuda_ms(plain),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "kernels", "preset": preset_name, "lattice": lattice,
+          "feat": list(feat.shape), "n_groups": sg.n_groups,
           "n_occ": int(addr.n_occ[0]), "particles": int(ok.sum()),
-          "candidate_pairs": pairs, "f_max_rel_err": f_err / f_scale,
-          "kernels": res})
+          "pairs": counts, "f_max_rel_err": f_err / f_scale,
+          "live_per_group": live_histogram(addr), "kernels": res})
     return res
 
 
@@ -383,7 +569,7 @@ def phase_kernels_packed(dev, state, scene, grid=None, lattice="per step"):
 
     visited, longest = packed_pairs(addr)
     sg_s, addr_s, feat_s = slot_inputs(scene, state)
-    pairs = real_pairs(feat_s, addr_s, sg_s)
+    counts = pair_counts(feat_s, addr_s, sg_s, params)
     res = {}
     for name, kern, plain, err in (
         ("packed_density", lambda: pk.packed_density(feat, *args),
@@ -392,7 +578,7 @@ def phase_kernels_packed(dev, state, scene, grid=None, lattice="per step"):
         ("packed_force", lambda: pk.packed_force(feat, rp_k, *args),
          lambda: pk.packed_force_plain(feat, rp_k, *args), f_err),
     ):
-        b_ms, b_by = bound(name, feat, addr, sg, d, pairs)
+        b_ms, b_by = bound(name, feat, addr, sg, d, counts)
         res[name] = {
             "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, n=5, warm=1),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -403,7 +589,7 @@ def phase_kernels_packed(dev, state, scene, grid=None, lattice="per step"):
           "n_occ": int(addr.n_occ[0]), "particles": int(ok.sum()),
           "jb_max": int(jb.max()), "rows_over_128": int((jb >= 2).sum()),
           "occupied_blocks": int((addr.gcounts > 0).sum()),
-          "candidate_pairs": pairs, "pairs_visited_in_whole_rows": visited,
+          "pairs": counts, "pairs_visited_in_whole_rows": visited,
           "most_candidates_of_a_particle": longest,
           "f_max_rel_err": f_err / f_scale,
           "tiny_launch_ms": tiny_launch_ms(dev), "kernels": res})
@@ -442,12 +628,17 @@ def reset_counts() -> None:
     step_mod.reset_fetches()
 
 
-def read_counts() -> dict:
+def read_counts(name: str) -> dict:
+    """The launch counts of the path `name` just drove; no path may launch
+    a yardstick (`slot_*_simple`)."""
     from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
     from sph_tpu_torch import probe_vpu_bf16 as pr
     from sph_tpu_torch import stage_kernels as st
 
-    return {**sk.LAUNCHES, **pk.LAUNCHES, **st.LAUNCHES, **pr.LAUNCHES}
+    counts = {**sk.LAUNCHES, **pk.LAUNCHES, **st.LAUNCHES, **pr.LAUNCHES}
+    check(not any(n for k, n in counts.items() if "simple" in k),
+          f"no yardstick kernel launched at {name}")
+    return counts
 
 
 def health(state, scene) -> dict:
@@ -514,7 +705,7 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
                     **run_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = read_counts(name)
     fetches = dict(step_mod.FETCHES)
     peak = torch.cuda.max_memory_allocated()
     audit(state)
@@ -722,7 +913,7 @@ def phase_stage(preset_name: str, dev):
     reset_counts()                      # the entry point's own path
     staged = ps.scatter_slots(addr, rows, sg, staged=True)
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches = read_counts(f"scatter_slots(staged=True) at {preset_name}")
     check(launches["stage_transpose"] == 1,
           f"scatter_slots(staged=True) launched K5 once at {preset_name}")
 
@@ -886,24 +1077,28 @@ def phase_kernels_bf16(preset_name: str, dev):
           and f_vs32 < BF16_F_REL, f"bf16 vs fp32 kernels at {preset_name}")
     check(bool(torch.isfinite(rho_k).all() and torch.isfinite(fk).all()),
           f"finite bf16 kernel outputs at {preset_name}")
+    hold_to_simple(f"{preset_name} bf16", feat, rp_k, f_k, args)
 
-    pairs = real_pairs(feat32, addr, sg)
+    counts = pair_counts(feat32, addr, sg, params)
+    staged = staged_slots(feat32, addr, sg)
     res = {}
-    for name, kern, plain, err in (
+    for name, kern, simple, plain, err in (
         ("slot_density_bf16", lambda: sk.slot_density(feat, *args),
+         lambda: sk.slot_density_simple(feat, *args),
          lambda: sk.density_plain(feat, *args),
          float(torch.max(torch.abs(rho_k - rho_p)))),
         ("slot_force_bf16", lambda: sk.slot_force(feat, rp_k, *args),
+         lambda: sk.slot_force_simple(feat, rp_k, *args),
          lambda: sk.force_plain(feat, rp_k, *args), f_err),
     ):
-        b_ms, b_by = bound(name, feat, addr, sg, d, pairs)
-        res[name] = {
-            "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
+        b_ms, b_by = bound(name, feat, addr, sg, d, counts, staged)
+        res[name] = {"max_abs_err": err, "bitwise_simple": True,
+                     **in_turns(kern, simple), "plain_ms": cuda_ms(plain),
+                     "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "kernels", "preset": preset_name, "precision": "bf16",
           "feat": list(feat.shape), "n_occ": int(addr.n_occ[0]),
-          "particles": int(ok.sum()), "candidate_pairs": pairs,
+          "particles": int(ok.sum()), "pairs": counts,
+          "staged_slots": staged,
           "f_max_rel_err": f_err / f_scale,
           "vs_fp32": {"rho_max_rel": rho_vs32, "f_max_rel_of_scale": f_vs32,
                       "limits": [BF16_RHO_RTOL, BF16_F_REL]},
@@ -939,20 +1134,23 @@ def phase_kernels_xsub(preset_name: str, dev, xsub: int = 2):
     f_scale = float(torch.max(torch.abs(fp)))
     check(f_err / f_scale < F_REL, f"xsub K2 vs plain at {preset_name}")
     check(int(addr.overflow) == 0, f"no slot-cell overflow at xsub={xsub}")
+    hold_to_simple(f"{preset_name} xsub={xsub}", feat, rp_k, f_k, args)
     sg1, addr1, feat1 = slot_inputs(scene, state)
-    pairs = real_pairs(feat1, addr1, sg1)
+    counts = pair_counts(feat1, addr1, sg1, params)
     res = {}
-    for name, kern, plain, err in (
+    for name, kern, simple, plain, err in (
         ("slot_density", lambda: sk.slot_density(feat, *args),
+         lambda: sk.slot_density_simple(feat, *args),
          lambda: sk.density_plain(feat, *args),
          float(torch.max(torch.abs(rho_k - rho_p)))),
         ("slot_force", lambda: sk.slot_force(feat, rp_k, *args),
+         lambda: sk.slot_force_simple(feat, rp_k, *args),
          lambda: sk.force_plain(feat, rp_k, *args), f_err),
     ):
-        b_ms, b_by = bound(name, feat, addr, sg, d, pairs)
-        res[name] = {"xsub": xsub, "max_abs_err": err, "ms": cuda_ms(kern),
-                     "plain_ms": cuda_ms(plain), "bound_ms": b_ms,
-                     "bound_by": b_by}
+        b_ms, b_by = bound(name, feat, addr, sg, d, counts)
+        res[name] = {"xsub": xsub, "max_abs_err": err, "bitwise_simple": True,
+                     **in_turns(kern, simple), "plain_ms": cuda_ms(plain),
+                     "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "kernels", "preset": preset_name, "xsub": xsub,
           "slot_cap": sg.cap, "feat": list(feat.shape),
           "n_occ": int(addr.n_occ[0]), "particles": int(ok.sum()),
@@ -1026,7 +1224,7 @@ def phase_packed_scatter(dev, n_steps: int, spd: int = 100):
         viol, healed, rebuilds = viol + int(v), healed + h, rebuilds + r
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = read_counts(name)
     fetches = dict(step_mod.FETCHES)
     peak = torch.cuda.max_memory_allocated()
     over = max(over, overflow(state))
@@ -1158,12 +1356,12 @@ def phase_probe(dev):
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         timing = pr.main(50)
-    launches = read_counts()
+    launches = read_counts("probe_vpu_bf16.main(50)")
     for name, key in (("probe_fp32", "fp32"), ("probe_bf16", "bf16")):
         t = timing[key]
         res[name].update(launches=launches["probe_f32" if key == "fp32"
                                             else "probe_bf16"],
-                         ms=t["ms"], direct_ms=t["direct_ms"],
+                         ms=t["direct_ms"], graph_ms=t["ms"],
                          top_s=t["ops_per_s"] / 1e12,
                          bound_ms=t["bound_ms"], bound_by=t["bound_by"])
     check(res["probe_fp32"]["launches"] == res["probe_bf16"]["launches"]
@@ -1208,6 +1406,10 @@ def main() -> int:
     at_reuse = phase_kernels_packed(dev, settled, scene_e,
                                     grid=reuse_grid(scene_e, 4),
                                     lattice="sort_every=4")
+    # K1/K2 on the skinned lattice the resident paths run on
+    at_skin = {p: phase_kernels(p, dev, grid=reuse_grid(sph.preset(p), 4),
+                                lattice="sort_every=4")
+               for p in ("dam3d_100k", "splash3d_1m")}
 
     runs = {}
     for name in ("dam3d_100k", "splash3d_1m"):
@@ -1383,6 +1585,11 @@ def main() -> int:
             "with_xsub": {"preset": "dam3d_100k",
                           "launches": options["xsub"]["launches"][name],
                           **at_xsub[name]},
+            "at_skinned": {
+                p: {"lattice": "sort_every=4",
+                    "launches": runs[f"resident:{p}"]["launches"][name],
+                    **at_skin[p][name]}
+                for p in ("dam3d_100k", "splash3d_1m")},
             **resident(name),
         })
         bname = f"{name}_bf16"

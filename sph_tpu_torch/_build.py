@@ -31,12 +31,17 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # argtypes per exported function of each library
+_SLOT_DENSITY = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                 _I, _F, _F, _F, _F, _F, _F, _I, _P)
+_SLOT_FORCE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+               _F, _F, _F, _F, _F, _I, _P)
 SIGNATURES = {
     "slot_kernels": {
-        "slot_density": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
-        "slot_force": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _F, _F, _F, _I, _P),
+        "slot_density": _SLOT_DENSITY,
+        "slot_force": _SLOT_FORCE,
+        "slot_density_simple": _SLOT_DENSITY,
+        "slot_force_simple": _SLOT_FORCE,
+        "slot_stage_bytes": (_I, _I, _I),
     },
     "packed_kernels": {
         "packed_density": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,

@@ -144,8 +144,8 @@ def slot_grid(grid: GridSpec, c_rows: int | None = None,
     c_rows = _c_rows(grid, c_rows)
     if row_pair and c_rows % 2:
         # the reference maps two rows to one Pallas program and pads c_rows
-        # even; the CUDA kernels run a thread per slot and need only the
-        # padding, which the addressing follows
+        # even; the CUDA kernels take one block per (128-lane group, row)
+        # and need only the padding, which the addressing follows
         c_rows += 1
     return SlotGrid(inner=grid.shape, cap=cap_slot, c_rows=c_rows,
                     cell=grid.cell, xsub=grid.xsub)

@@ -25,9 +25,12 @@ only in summation order.
 
 A wrapper given CUDA tensors launches its kernel (building it at first use)
 or raises; given CPU tensors it runs the plain version.  `LAUNCHES` counts
-kernel launches only, the bf16 kernels apart.  What bounds the kernels on
-the card, and their design, is noted in the CUDA source; PERF.md holds their
-times.
+kernel launches only (none while a CUDA graph is captured), the bf16
+kernels apart.  `slot_density_simple` and `slot_force_simple` launch the
+first design of the kernels, kept as the yardstick the staged ones are held
+to bit for bit and timed against; no path calls them.  What bounds the
+kernels on the card, and their design, is noted in the CUDA source; PERF.md
+holds their times.
 """
 
 from __future__ import annotations
@@ -47,7 +50,9 @@ LANE = 128
 #: kernel launches per wrapper since the last `reset_launches()`; a run
 #: reads them to show that its path went through the kernels
 LAUNCHES = {"slot_density": 0, "slot_force": 0,
-            "slot_density_bf16": 0, "slot_force_bf16": 0}
+            "slot_density_bf16": 0, "slot_force_bf16": 0,
+            "slot_density_simple": 0, "slot_force_simple": 0,
+            "slot_density_simple_bf16": 0, "slot_force_simple_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -262,11 +267,7 @@ def _name(base: str, feat) -> str:
     return base + ("_bf16" if feat.dtype == torch.bfloat16 else "")
 
 
-def slot_density(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
-                 xsub: int = 1, cell: float | None = None):
-    """K1 → rp [c_rows, 2, lanes] (rho, EOS p), lane-major.  `xsub` is the
-    grid's x subdivision (the candidate margin in slot-cells); `cell` the
-    grid's cell, needed by bf16 features."""
+def _density(entry, feat, n_occ, nbr_pos, gcounts, cap, params, xsub, cell):
     _check_slot(feat, n_occ, nbr_pos, gcounts, cap, xsub)
     if feat.device.type == "cpu":
         return density_plain(feat, n_occ, nbr_pos, gcounts, cap, params,
@@ -277,7 +278,7 @@ def slot_density(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
     c_p, _, _ = kernel_constants(params.dim, params.h, params.kernel_norm)
     eos = _eos_args(params)
     rp = torch.empty((c_rows, 2, lanes), dtype=torch.float32, device=feat.device)
-    rc = lib.slot_density(
+    rc = getattr(lib, entry)(
         feat.data_ptr(), nbr_pos.data_ptr(), gcounts.data_ptr(),
         n_occ.data_ptr(), rp.data_ptr(), c_rows, lanes, gcounts.shape[-1],
         cap, xsub, nbr_pos.shape[0], params.dim,
@@ -285,16 +286,14 @@ def slot_density(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
         _f32(params.mass * c_p), *eos, *frame, feat.device.index or 0,
         _stream(feat.device),
     )
-    name = _name("slot_density", feat)
+    name = _name(entry, feat)
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        LAUNCHES[name] += 1
     return rp
 
 
-def slot_force(feat, rp, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
-               xsub: int = 1, cell: float | None = None):
-    """K2 → f [c_rows, FOUT, lanes], lane-major (components >= D zero);
-    `xsub` and `cell` as for `slot_density`."""
+def _force(entry, feat, rp, n_occ, nbr_pos, gcounts, cap, params, xsub, cell):
     _check_slot(feat, n_occ, nbr_pos, gcounts, cap, xsub,
                 extra=(("rp", rp, torch.float32),))
     if rp.shape != (feat.shape[0], 2, feat.shape[2]):
@@ -307,7 +306,7 @@ def slot_force(feat, rp, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
     c_rows, _, lanes = feat.shape
     _, c_s, c_v = kernel_constants(params.dim, params.h, params.kernel_norm)
     f = torch.empty((c_rows, FOUT, lanes), dtype=torch.float32, device=feat.device)
-    rc = lib.slot_force(
+    rc = getattr(lib, entry)(
         feat.data_ptr(), rp.data_ptr(), nbr_pos.data_ptr(), gcounts.data_ptr(),
         n_occ.data_ptr(), f.data_ptr(), c_rows, lanes, gcounts.shape[-1], cap,
         xsub, nbr_pos.shape[0], params.dim, int(feat.dtype == torch.bfloat16),
@@ -315,7 +314,44 @@ def slot_force(feat, rp, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
         _f32(params.viscosity * params.mass), _f32(c_v), *frame,
         feat.device.index or 0, _stream(feat.device),
     )
-    name = _name("slot_force", feat)
+    name = _name(entry, feat)
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        LAUNCHES[name] += 1
     return f
+
+
+def slot_density(feat, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
+                 xsub: int = 1, cell: float | None = None):
+    """K1 → rp [c_rows, 2, lanes] (rho, EOS p), lane-major.  `xsub` is the
+    grid's x subdivision (the candidate margin in slot-cells); `cell` the
+    grid's cell, needed by bf16 features."""
+    return _density("slot_density", feat, n_occ, nbr_pos, gcounts, cap,
+                    params, xsub, cell)
+
+
+def slot_force(feat, rp, n_occ, nbr_pos, gcounts, cap: int, params: SimParams,
+               xsub: int = 1, cell: float | None = None):
+    """K2 → f [c_rows, FOUT, lanes], lane-major (components >= D zero);
+    `xsub` and `cell` as for `slot_density`."""
+    return _force("slot_force", feat, rp, n_occ, nbr_pos, gcounts, cap,
+                  params, xsub, cell)
+
+
+def slot_density_simple(feat, n_occ, nbr_pos, gcounts, cap: int,
+                        params: SimParams, xsub: int = 1,
+                        cell: float | None = None):
+    """K1 as first designed (one thread per slot, every candidate loaded
+    from global memory): the staged kernel's yardstick, bitwise its
+    results.  Arguments as `slot_density`."""
+    return _density("slot_density_simple", feat, n_occ, nbr_pos, gcounts,
+                    cap, params, xsub, cell)
+
+
+def slot_force_simple(feat, rp, n_occ, nbr_pos, gcounts, cap: int,
+                      params: SimParams, xsub: int = 1,
+                      cell: float | None = None):
+    """K2 as first designed: the staged kernel's yardstick, bitwise its
+    results.  Arguments as `slot_force`."""
+    return _force("slot_force_simple", feat, rp, n_occ, nbr_pos, gcounts,
+                  cap, params, xsub, cell)

@@ -1,5 +1,6 @@
 """The CUDA kernels (K1-K5, P1) on a card against their plain PyTorch
-versions, and the port's paths through them.  Every test here is marked `gpu` and skips
+versions, the staged K1/K2 bitwise against their simple yardsticks, and
+the port's paths through them.  Every test here is marked `gpu` and skips
 without a card (decided inside the test).  The file imports neither JAX
 nor `sph_tpu`, so it also runs where those are not installed:
 
@@ -22,6 +23,14 @@ from sph_tpu_torch import probe_vpu_bf16 as probe
 torch.set_num_threads(1)
 
 RHO_RTOL, RHO_ATOL, FTOL = 1e-5, 1e-6, 3e-5
+
+
+def _slot_launches(n: int) -> dict:
+    """LAUNCHES after a path that ran the fp32 K1/K2 n times each: no bf16
+    kernel and no yardstick."""
+    out = dict.fromkeys(slot_kernels.LAUNCHES, 0)
+    out.update(slot_density=n, slot_force=n)
+    return out
 
 
 def _card() -> torch.device:
@@ -178,9 +187,7 @@ def test_run_on_card_goes_through_the_kernels():
     slot_kernels.reset_launches()
     state = port.run(scene, 10, method="pallas", device=dev)
     torch.cuda.synchronize()
-    assert slot_kernels.LAUNCHES == {"slot_density": 10, "slot_force": 10,
-                                     "slot_density_bf16": 0,
-                                     "slot_force_bf16": 0}
+    assert slot_kernels.LAUNCHES == _slot_launches(10)
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.run(scene, 10, method="pallas", device="cpu")
     xs = host.x.abs().max()
@@ -284,9 +291,7 @@ def test_packed_run_on_card_goes_through_the_packed_kernels():
     # a leapfrog scene's prime at step 0 runs on the slot layout, as in the
     # reference; this Euler scene has none
     primes = int(scene.params.integrator == "leapfrog")
-    assert slot_kernels.LAUNCHES == {"slot_density": primes, "slot_force": primes,
-                                     "slot_density_bf16": 0,
-                                     "slot_force_bf16": 0}
+    assert slot_kernels.LAUNCHES == _slot_launches(primes)
     assert packed_kernels.LAUNCHES == {"packed_density": 8, "packed_force": 8}
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.run(scene, 8, method="pallas", packed_rows=True, sort_every=4,
@@ -336,9 +341,7 @@ def test_production_default_on_card_goes_through_the_kernels():
     state = audited(port.init(scene, device=dev))
     torch.cuda.synchronize()
     want = 16 + 4 * audited.healed
-    assert slot_kernels.LAUNCHES == {"slot_density": want, "slot_force": want,
-                                     "slot_density_bf16": 0,
-                                     "slot_force_bf16": 0}
+    assert slot_kernels.LAUNCHES == _slot_launches(want)
     assert packed_kernels.LAUNCHES == {"packed_density": 0, "packed_force": 0}
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.make_audited_advance(scene, "pallas", 16, sort_every=4,
@@ -347,3 +350,105 @@ def test_production_default_on_card_goes_through_the_kernels():
     assert (host.healed, host.rebuilds) == (audited.healed, audited.rebuilds)
     xs = host_state.x.abs().max()
     assert float((state.x.cpu() - host_state.x).abs().max() / xs) < 1e-4
+
+
+def _holes(feat, addr, frac: float, seed: int):
+    """Empty a random `frac` of the live slots of rows 1..n_occ as the
+    resident path's minority repair leaves them (x at 1e18, v 0), so cells
+    have holes below their last particle.  Returns the number emptied."""
+    n = int(addr.n_occ[0])
+    x0 = feat[1 : n + 1, 0].float()
+    rows, lanes = torch.nonzero(x0 < 1e17, as_tuple=True)
+    rng = np.random.default_rng(seed)
+    pick = torch.from_numpy(rng.random(rows.shape[0]) < frac).to(feat.device)
+    rows, lanes = rows[pick] + 1, lanes[pick]
+    for c in range(3):
+        feat[rows, c, lanes] = 1e18
+        feat[rows, 3 + c, lanes] = 0.0
+    return int(pick.sum())
+
+
+def _bitwise(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _staged_vs_simple(params, sg, feat, addr):
+    """K1/K2 staged and simple on the same inputs: every output element
+    bitwise (zeros of empty lanes, empty groups and rows past n_occ
+    included); launches counted under their own names."""
+    args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params, sg.xsub,
+            sg.cell)
+    sfx = "_bf16" if feat.dtype == torch.bfloat16 else ""
+    before = dict(slot_kernels.LAUNCHES)
+    rp = slot_kernels.slot_density(feat, *args)
+    rp_s = slot_kernels.slot_density_simple(feat, *args)
+    f = slot_kernels.slot_force(feat, rp, *args)
+    f_s = slot_kernels.slot_force_simple(feat, rp, *args)
+    torch.cuda.synchronize()
+    for name in ("slot_density", "slot_force", "slot_density_simple",
+                 "slot_force_simple"):
+        assert slot_kernels.LAUNCHES[name + sfx] == before[name + sfx] + 1
+    assert _bitwise(rp, rp_s)
+    assert _bitwise(f, f_s)
+    assert bool(torch.isfinite(rp).all() and torch.isfinite(f).all())
+    return rp, f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("xsub", [1, 2])
+@pytest.mark.parametrize("cap", [8, 16, 64])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_staged_kernels_bitwise_simple_with_holes(dim, cap, xsub, bf16):
+    """The staged K1/K2 give the simple kernels' bits on a cloud whose
+    cells have holes (10% of the live slots emptied as repair does); the
+    plain versions agree at the fp32 tolerances."""
+    dev = _card()
+    kw = dict(precision="bf16") if bf16 else {}
+    params, sg, addr, feat = _slots(dim, cap, kw, dev, xsub=xsub,
+                                    seed=70 + dim + cap + xsub)
+    assert _holes(feat, addr, 0.1, seed=cap + xsub) > 0
+    rp, f = _staged_vs_simple(params, sg, feat, addr)
+    args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params, sg.xsub,
+            sg.cell)
+    rp_p = slot_kernels.density_plain(feat, *args)
+    f_p = slot_kernels.force_plain(feat, rp, *args)
+    assert torch.allclose(rp[:, 0], rp_p[:, 0], rtol=RHO_RTOL, atol=RHO_ATOL)
+    scale = float(f_p.abs().max())
+    assert scale > 0 and float((f - f_p).abs().max()) / scale < FTOL
+    empty = feat[:, 0].float() >= 1e17
+    assert not rp[:, 0][empty].any() and not f[:, 0][empty].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_staged_kernels_bitwise_simple_at_the_edges(dim, bf16):
+    """A cell filled to its cap (a dense clump), groups with no particle,
+    and rows past n_occ: the staged K1/K2 bitwise the simple ones."""
+    dev = _card()
+    rng = np.random.default_rng(80 + dim)
+    n_sparse, n_clump = 600, 400
+    x = np.concatenate([
+        rng.uniform(20.0, 140.0, (n_sparse, dim)),
+        rng.uniform(80.0, 80.0 + 4.0, (n_clump, dim)),
+    ]).astype(np.float32)
+    x[:n_sparse, 0] = rng.uniform(20.0, 60.0, n_sparse)  # rows past n_occ
+    v = rng.uniform(-5.0, 5.0, x.shape).astype(np.float32)
+    kw = dict(precision="bf16") if bf16 else {}
+    params = port.SimParams(dim=dim, gravity=(0.0,) * dim, **kw)
+    scene = port.Scene(params=params, lo=(0.0,) * dim, hi=(160.0,) * dim)
+    grid = neighbors.GridSpec.for_scene(scene, cap=16)
+    sg = ps.slot_grid(grid)
+    xt, vt = (torch.from_numpy(a).to(dev) for a in (x, v))
+    addr = ps.build_addr(xt, torch.ones(x.shape[0], dtype=torch.bool,
+                                        device=dev), grid, sg)
+    rows = ps._rel_rows(xt, vt, addr) if bf16 else ps._pack_rows6(xt, vt)
+    feat = ps.scatter_slots(addr, rows, sg)
+    n_occ = int(addr.n_occ[0])
+    inner = addr.gcounts[1 : n_occ + 1, 0, 1:-1]
+    assert int(addr.overflow) > 0                      # a cell at its cap
+    assert bool((inner == 0).any())                    # empty groups
+    assert n_occ < sg.c_rows - 1                       # rows past n_occ
+    assert _holes(feat, addr, 0.1, seed=dim) > 0
+    _staged_vs_simple(params, sg, feat, addr)
