@@ -8,8 +8,9 @@ Phases, each printed as one JSON line:
   1. card     nvidia-smi name and power limit, torch and CUDA versions
   2. build    nvcc builds of the slot and the packed-row kernels from csrc/
               (side by side), with the -Xptxas -v register/spill lines, and
-              per K1/K2 kernel its registers, spills, shared memory and
-              block size
+              per K1/K2 and K3/K4 kernel its registers, spills, shared
+              memory and block size (K3/K4: the warp kernels' default
+              launch choices)
   3. kernels  at dam3d_100k and splash3d_1m (the slot arrays of step 0):
               K1 and K2 against their plain PyTorch versions on the same
               inputs (rho rtol 1e-5 atol 1e-6 per particle; f max-relative
@@ -24,11 +25,17 @@ Phases, each printed as one JSON line:
               arrays)
   4. kernels  at emitters3d@settled (the committed checkpoint of step
               260,000): K3 and K4 against their plain versions at the same
-              tolerances, times of K3, K4 and of K1, K2 (with their
-              yardsticks, bitwise) on the slot layout of the same state,
-              their bounds, and the time of the smallest launch; K3 and K4 twice, at the shapes of both packed paths:
-              addressing built on the per-step lattice, and on the skinned
-              lattice of sort_every=4 (wider rows, more multi-block rows)
+              tolerances and bitwise their simple yardsticks
+              (`packed_*_simple`, the first design), times of the two in
+              turns by both methods, of K1, K2 (with their yardsticks,
+              bitwise) on the slot layout of the same state, their bounds,
+              and the time of the smallest launch; then the sweep of the
+              warp K3/K4's launch choices (warps a block, tile, prefetch,
+              band test), each bitwise the default, timed by graph
+              replay in turns.  K3 and K4 twice, at the shapes of both
+              packed paths: addressing built on the per-step lattice, and on
+              the skinned lattice of sort_every=4 (wider rows, more
+              multi-block rows)
   5. path     run(preset("dam3d_100k"), 200, method="pallas") on the card:
               finite state, no cap overflow, mean rho/rho0 of the fluid in
               [0.90, 1.10], max|v| < 500, and each kernel launched exactly
@@ -111,7 +118,7 @@ Phases, each printed as one JSON line:
   {"ok": true, "device": {...}}.
 
 Every path reads its launch counts through `read_counts`, which checks that
-no yardstick ran in it.  Any failed check
+no yardstick and no variant of a launch choice ran in it.  Any failed check
 raises and the script exits non-zero without the last line.  It imports
 neither JAX nor `sph_tpu`.
 """
@@ -119,6 +126,7 @@ neither JAX nor `sph_tpu`.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import re
@@ -310,23 +318,37 @@ def live_histogram(addr) -> dict:
                 int(((gc + 31) // 32 * 32).sum()), 1)}
 
 
-def ptxas_summary(log: str) -> dict:
-    """Per slot kernel (K1/K2, staged and simple, by dim and feature type)
-    its registers, spill bytes and static shared memory, from nvcc's
-    -Xptxas -v lines."""
+def slot_kernel_name(mangled: str) -> str | None:
+    """A slot kernel (K1/K2, staged and simple, by dim and feature type)
+    by its mangled name."""
+    k = re.search(r"(density_kernel_simple|force_kernel_simple|"
+                  r"staged_kernel)ILi(\d)E([tf])(?:Lb([01])E)?", mangled)
+    if not k:
+        return None
+    kind = {"0": ", K1", "1": ", K2", None: ""}[k.group(4)]
+    feat = "bf16" if k.group(3) == "t" else "float"
+    return f"{k.group(1)}<{k.group(2)}, {feat}{kind}>"
+
+
+def packed_kernel_name(mangled: str) -> str | None:
+    """A packed-row kernel (K3/K4, warp and simple) with its template
+    arguments (dim; tile, band, prefetch) by its mangled name."""
+    k = re.search(r"((?:simple|warp)_(?:density|force)_kernel)I"
+                  r"((?:L[ib]\d+E)+)E", mangled)
+    if not k:
+        return None
+    return f"{k.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
+
+
+def ptxas_summary(log: str, kernel_name=slot_kernel_name) -> dict:
+    """Per kernel (named by `kernel_name`) its registers, spill bytes and
+    static shared memory, from nvcc's -Xptxas -v lines."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\S+?)'?(?: for|$)", line.strip())
         if m:
-            k = re.search(r"(density_kernel_simple|force_kernel_simple|"
-                          r"staged_kernel)ILi(\d)E([tf])(?:Lb([01])E)?",
-                          m.group(1))
-            name = None
-            if k:
-                kind = {"0": ", K1", "1": ", K2", None: ""}[k.group(4)]
-                feat = "bf16" if k.group(3) == "t" else "float"
-                name = f"{k.group(1)}<{k.group(2)}, {feat}{kind}>"
+            name = kernel_name(m.group(1))
             if name:
                 out.setdefault(name, {})
             continue
@@ -366,6 +388,11 @@ def phase_build():
               f"{kind} cap {cap} xm {xm}": lib.slot_stage_bytes(force, cap, xm)
               for kind, force in (("K1", 0), ("K2", 1))
               for cap, xm in ((16, 1), (8, 2))}})
+    from sph_tpu_torch import packed_kernels as pk
+
+    emit({"phase": "build", "library": "packed_kernels", "kernels":
+          ptxas_summary(all_built["packed_kernels"].log, packed_kernel_name),
+          "warp_kernel_defaults": pk.default_choices()})
 
 
 def reuse_grid(scene, sort_every: int, xsub: int = 1):
@@ -532,10 +559,68 @@ def tiny_launch_ms(dev) -> float:
     return cuda_ms(lambda: t.add_(1.0), n=200)
 
 
+def hold_packed_to_simple(where: str, feat, rp, f, args) -> None:
+    """The warp K3/K4 outputs `rp`, `f` bitwise their simple yardsticks'
+    on the same inputs (K4 of both on `rp`)."""
+    from sph_tpu_torch import packed_kernels as pk
+
+    rp_s = pk.packed_density_simple(feat, *args)
+    f_s = pk.packed_force_simple(feat, rp, *args)
+    torch.cuda.synchronize()
+    check(bitwise(rp, rp_s), f"K3 bitwise its yardstick at {where}")
+    check(bitwise(f, f_s), f"K4 bitwise its yardstick at {where}")
+
+
+# the launch choices of the warp K3/K4 measured against each other
+SWEEP_WARPS, SWEEP_TILES = (2, 4, 8), (32, 64, 128)
+
+
+def sweep_packed(where: str, feat, rp, f, args, rounds: int = 3) -> dict:
+    """Every launch choice of the warp K3/K4 (warps a block, tile, prefetch,
+    band), each held bitwise to the default kernels' `rp` and `f`, then
+    timed by CUDA-graph replay `rounds` times in turns, all choices in each
+    round: the median per choice, the fastest, and the defaults' time (the
+    choice the path runs)."""
+    from sph_tpu_torch import packed_kernels as pk
+
+    def key(kern, warps, tile, prefetch, band):
+        return f"{kern} w{warps} t{tile} p{int(prefetch)} b{int(band)}"
+
+    runs = {}
+    for warps in SWEEP_WARPS:
+        for tile in SWEEP_TILES:
+            for prefetch in (False, True):
+                for band in (False, True):
+                    choice = dict(warps=warps, tile=tile, prefetch=prefetch,
+                                  band=band)
+                    runs[key("K3", **choice)] = functools.partial(
+                        pk.packed_density_variant, feat, *args, **choice)
+                    runs[key("K4", **choice)] = functools.partial(
+                        pk.packed_force_variant, feat, rp, *args, **choice)
+    for name, fn in runs.items():
+        out = fn()
+        torch.cuda.synchronize()
+        check(bitwise(out, rp if name.startswith("K3") else f),
+              f"{name} bitwise the default at {where}")
+    turns = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, fn in runs.items():
+            turns[name].append(graph_ms(fn))
+    med = {name: statistics.median(v) for name, v in turns.items()}
+    d = pk.default_choices()
+    default = {"K3": key("K3", **d["density"]), "K4": key("K4", **d["force"])}
+    best = {k: min((n for n in med if n.startswith(k)), key=med.get)
+            for k in ("K3", "K4")}
+    return {"graph_ms": med, "defaults": default, "fastest": best,
+            "default_over_fastest": {k: med[default[k]] / med[best[k]]
+                                     for k in ("K3", "K4")}}
+
+
 def phase_kernels_packed(dev, state, scene, grid=None, lattice="per step"):
-    """K3 and K4 against their plain versions per particle, on the packed
-    arrays of the settled emitters3d state built on `grid` (default: the
-    per-step lattice)."""
+    """K3 and K4 against their plain versions per particle and bitwise
+    their simple yardsticks, on the packed arrays of the settled emitters3d
+    state built on `grid` (default: the per-step lattice); times of the two
+    designs in turns, the bound, and the sweep of the launch choices."""
     from sph_tpu_torch import neighbors, packed_kernels as pk
     from sph_tpu_torch import pallas_step as ps
 
@@ -545,6 +630,7 @@ def phase_kernels_packed(dev, state, scene, grid=None, lattice="per step"):
     sg, addr, feat = slot_inputs(scene, state, packed=True, grid=grid)
     jb = ps._jblocks(addr, sg)
     args = (addr.n_occ, addr.nbr_pos, jb, addr.gcounts, params)
+    where = f"emitters3d@settled, lattice {lattice}"
 
     rp_k = pk.packed_density(feat, *args)
     rp_p = pk.packed_density_plain(feat, *args)
@@ -552,7 +638,7 @@ def phase_kernels_packed(dev, state, scene, grid=None, lattice="per step"):
     rho_k, ok = ps._gather_rho(rp_k, addr, sg, params)
     rho_p, _ = ps._gather_rho(rp_p, addr, sg, params)
     check(bool(torch.allclose(rho_k, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)),
-          f"K3 vs plain at emitters3d@settled, lattice {lattice}")
+          f"K3 vs plain at {where}")
     f_k = pk.packed_force(feat, rp_k, *args)
     f_p = pk.packed_force_plain(feat, rp_k, *args)
     torch.cuda.synchronize()
@@ -560,39 +646,51 @@ def phase_kernels_packed(dev, state, scene, grid=None, lattice="per step"):
     fp = ps._gather_f(f_p, addr, sg, d, ok)
     f_err = float(torch.max(torch.abs(fk - fp)))
     f_scale = float(torch.max(torch.abs(fp)))
-    check(f_err / f_scale < F_REL,
-          f"K4 vs plain at emitters3d@settled, lattice {lattice}")
+    check(f_err / f_scale < F_REL, f"K4 vs plain at {where}")
     check(bool(torch.isfinite(rho_k).all() and torch.isfinite(fk).all()),
           "finite packed kernel outputs")
     check(int(ok.sum()) == int(state.n_active()) and int(addr.overflow) == 0,
           "every active particle has a packed lane")
+    hold_packed_to_simple(where, feat, rp_k, f_k, args)
 
     visited, longest = packed_pairs(addr)
     sg_s, addr_s, feat_s = slot_inputs(scene, state)
     counts = pair_counts(feat_s, addr_s, sg_s, params)
     res = {}
-    for name, kern, plain, err in (
+    for name, kern, simple, plain, err in (
         ("packed_density", lambda: pk.packed_density(feat, *args),
+         lambda: pk.packed_density_simple(feat, *args),
          lambda: pk.packed_density_plain(feat, *args),
          float(torch.max(torch.abs(rho_k - rho_p)))),
         ("packed_force", lambda: pk.packed_force(feat, rp_k, *args),
+         lambda: pk.packed_force_simple(feat, rp_k, *args),
          lambda: pk.packed_force_plain(feat, rp_k, *args), f_err),
     ):
         b_ms, b_by = bound(name, feat, addr, sg, d, counts)
         res[name] = {
-            "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, n=5, warm=1),
+            "max_abs_err": err, "bitwise_simple": True,
+            **in_turns(kern, simple), "plain_ms": cuda_ms(plain, n=5, warm=1),
             "bound_ms": b_ms, "bound_by": b_by,
         }
+        res[name]["over_bound"] = res[name]["ms"] / b_ms
+        res[name]["graph_over_bound"] = res[name]["graph_ms"] / b_ms
+    n_occ = int(addr.n_occ[0])
+    units = addr.gcounts[1 : n_occ + 1, 0, :].long()
+    live_units = int(((units + 31) // 32).sum())
     emit({"phase": "kernels", "preset": "emitters3d@settled", "layout": "packed",
           "lattice": lattice, "grid": list(grid.shape), "cell": grid.cell,
           "c_rows": sg.c_rows, "lanes": sg.lanes, "n_groups": sg.n_groups,
-          "n_occ": int(addr.n_occ[0]), "particles": int(ok.sum()),
+          "n_occ": n_occ, "particles": int(ok.sum()),
           "jb_max": int(jb.max()), "rows_over_128": int((jb >= 2).sum()),
           "occupied_blocks": int((addr.gcounts > 0).sum()),
+          "warp_units": sg.c_rows * sg.lanes // 32, "live_warp_units": live_units,
+          "lanes_used_by_live_units": int(ok.sum()) / max(32 * live_units, 1),
           "pairs": counts, "pairs_visited_in_whole_rows": visited,
           "most_candidates_of_a_particle": longest,
           "f_max_rel_err": f_err / f_scale,
           "tiny_launch_ms": tiny_launch_ms(dev), "kernels": res})
+    emit({"phase": "sweep", "preset": "emitters3d@settled", "lattice": lattice,
+          **sweep_packed(where, feat, rp_k, f_k, args)})
     return res
 
 
@@ -630,14 +728,15 @@ def reset_counts() -> None:
 
 def read_counts(name: str) -> dict:
     """The launch counts of the path `name` just drove; no path may launch
-    a yardstick (`slot_*_simple`)."""
+    a yardstick (`*_simple`) or a measured launch choice (`*_variant`)."""
     from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
     from sph_tpu_torch import probe_vpu_bf16 as pr
     from sph_tpu_torch import stage_kernels as st
 
     counts = {**sk.LAUNCHES, **pk.LAUNCHES, **st.LAUNCHES, **pr.LAUNCHES}
-    check(not any(n for k, n in counts.items() if "simple" in k),
-          f"no yardstick kernel launched at {name}")
+    check(not any(n for k, n in counts.items()
+                  if "simple" in k or "variant" in k),
+          f"no yardstick or variant kernel launched at {name}")
     return counts
 
 

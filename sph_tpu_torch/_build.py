@@ -35,6 +35,10 @@ _SLOT_DENSITY = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                  _I, _F, _F, _F, _F, _F, _F, _I, _P)
 _SLOT_FORCE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                _F, _F, _F, _F, _F, _I, _P)
+_PACKED_DENSITY = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                   _F, _F, _F, _F, _I, _P)
+_PACKED_FORCE = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                 _F, _I, _P)
 SIGNATURES = {
     "slot_kernels": {
         "slot_density": _SLOT_DENSITY,
@@ -44,10 +48,16 @@ SIGNATURES = {
         "slot_stage_bytes": (_I, _I, _I),
     },
     "packed_kernels": {
-        "packed_density": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                           _F, _I, _I, _F, _F, _F, _F, _I, _P),
-        "packed_force": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                         _F, _F, _F, _F, _I, _P),
+        "packed_density": _PACKED_DENSITY,
+        "packed_force": _PACKED_FORCE,
+        "packed_density_simple": _PACKED_DENSITY,
+        "packed_force_simple": _PACKED_FORCE,
+        # the launch choices (warps, tile, prefetch, band) before device
+        "packed_density_variant": (*_PACKED_DENSITY[:-2], _I, _I, _I, _I,
+                                   _I, _P),
+        "packed_force_variant": (*_PACKED_FORCE[:-2], _I, _I, _I, _I, _I,
+                                 _P),
+        "packed_defaults": (_P,),
     },
     "stage_kernels": {
         "stage_transpose": (_P, _P, _I, _I, _I, _P),
@@ -81,18 +91,20 @@ def nvcc() -> str:
     return path
 
 
-def build(name: str, force: bool = False) -> Built:
-    """Compile `csrc/<name>.cu` (unless a build of the same source and flags
-    exists and `force` is False) and load it."""
+def build(name: str, force: bool = False, defines: tuple = ()) -> Built:
+    """Compile `csrc/<name>.cu` (unless a build of the same source, flags
+    and preprocessor `defines` exists and `force` is False) and load it.
+    `library(name)` is the build without defines."""
     src = CSRC / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""
     if force or not out.exists():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc(), *flags, "-o", str(tmp), str(src)]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -109,7 +121,8 @@ def build(name: str, force: bool = False) -> Built:
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = ctypes.c_int
     built = Built(lib=lib, path=out, seconds=seconds, log=log)
-    _LOADED[name] = built
+    if not defines:
+        _LOADED[name] = built
     return built
 
 

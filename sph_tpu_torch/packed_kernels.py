@@ -22,13 +22,27 @@ kernels here visit only the occupied lanes.  Outputs are zero on row 0, rows
 past n_occ, blocks with no particle and empty lanes.  A kernel and its plain
 version differ only in summation order.
 
+On the card one warp computes a (row, 32-lane chunk) whose lanes hold
+particles, staging its candidates in shared memory a tile at a time, and K4
+runs the IEEE sqrt/division arithmetic only for candidates within h; the
+order of every sum is the first design's, so the results are its bits.
+`packed_density_simple` and `packed_force_simple` launch that first design
+(one 128-thread block per 128-lane block and row), kept as the yardstick
+the warp kernels are held to bit for bit and timed against;
+`packed_density_variant` and `packed_force_variant` launch the warp kernels
+with other launch choices (warps a block, tile, prefetch, band), for
+measuring them.  No path calls either.
+
 A wrapper given CUDA tensors launches its kernel (building it at first use)
 or raises; given CPU tensors it runs the plain version.  `LAUNCHES` counts
-kernel launches only.  The kernels' design and what bounds them on the card
-is noted in the CUDA source; PERF.md holds their times.
+kernel launches only, none while a CUDA graph is captured.  The kernels'
+design and what bounds them on the card is noted in the CUDA source;
+PERF.md holds their times.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -40,8 +54,11 @@ from sph_tpu_torch.slot_kernels import (
     FOUT, LANE, _check, _eos_args, _f32, _raise_on, _stream,
 )
 
-#: kernel launches per wrapper since the last `reset_launches()`
-LAUNCHES = {"packed_density": 0, "packed_force": 0}
+#: kernel launches per wrapper since the last `reset_launches()` (none
+#: while a CUDA graph is captured)
+LAUNCHES = {"packed_density": 0, "packed_force": 0,
+            "packed_density_simple": 0, "packed_force_simple": 0,
+            "packed_density_variant": 0, "packed_force_variant": 0}
 
 
 def reset_launches() -> None:
@@ -145,8 +162,13 @@ def packed_force_plain(feat, rp, n_occ, nbr_pos, jb, gcounts,
 # ---------------------------------------------------------------------------
 
 
-def packed_density(feat, n_occ, nbr_pos, jb, gcounts, params: SimParams):
-    """K3 → rp [c_rows, 2, lanes] (rho, EOS p), lane-major."""
+def _count(name: str) -> None:
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        LAUNCHES[name] += 1
+
+
+def _density(entry, feat, n_occ, nbr_pos, jb, gcounts, params: SimParams,
+             choices=()):
     _check_packed(feat, n_occ, nbr_pos, jb, gcounts)
     if feat.device.type == "cpu":
         return packed_density_plain(feat, n_occ, nbr_pos, jb, gcounts, params)
@@ -155,20 +177,20 @@ def packed_density(feat, n_occ, nbr_pos, jb, gcounts, params: SimParams):
     c_p, _, _ = kernel_constants(params.dim, params.h, params.kernel_norm)
     eos = _eos_args(params)
     rp = torch.empty((c_rows, 2, lanes), dtype=torch.float32, device=feat.device)
-    rc = lib.packed_density(
+    rc = getattr(lib, entry)(
         feat.data_ptr(), nbr_pos.data_ptr(), jb.data_ptr(), gcounts.data_ptr(),
         n_occ.data_ptr(), rp.data_ptr(), c_rows, lanes, gcounts.shape[-1],
         nbr_pos.shape[0], params.dim, _f32(params.h * params.h),
-        _f32(params.mass * c_p), *eos, feat.device.index or 0,
+        _f32(params.mass * c_p), *eos, *choices, feat.device.index or 0,
         _stream(feat.device),
     )
-    _raise_on(rc, "packed_density")
-    LAUNCHES["packed_density"] += 1
+    _raise_on(rc, entry)
+    _count(entry)
     return rp
 
 
-def packed_force(feat, rp, n_occ, nbr_pos, jb, gcounts, params: SimParams):
-    """K4 → f [c_rows, FOUT, lanes], lane-major (components >= D zero)."""
+def _force(entry, feat, rp, n_occ, nbr_pos, jb, gcounts, params: SimParams,
+           choices=()):
     _check_packed(feat, n_occ, nbr_pos, jb, gcounts,
                   extra=(("rp", rp, torch.float32),))
     if rp.shape != (feat.shape[0], 2, feat.shape[2]):
@@ -179,13 +201,73 @@ def packed_force(feat, rp, n_occ, nbr_pos, jb, gcounts, params: SimParams):
     c_rows, _, lanes = feat.shape
     _, c_s, c_v = kernel_constants(params.dim, params.h, params.kernel_norm)
     f = torch.empty((c_rows, FOUT, lanes), dtype=torch.float32, device=feat.device)
-    rc = lib.packed_force(
+    rc = getattr(lib, entry)(
         feat.data_ptr(), rp.data_ptr(), nbr_pos.data_ptr(), jb.data_ptr(),
         gcounts.data_ptr(), n_occ.data_ptr(), f.data_ptr(), c_rows, lanes,
         gcounts.shape[-1], nbr_pos.shape[0], params.dim, _f32(params.h),
         _f32(c_s), _f32(params.mass * 0.5), _f32(params.viscosity * params.mass),
-        _f32(c_v), feat.device.index or 0, _stream(feat.device),
+        _f32(c_v), *choices, feat.device.index or 0, _stream(feat.device),
     )
-    _raise_on(rc, "packed_force")
-    LAUNCHES["packed_force"] += 1
+    _raise_on(rc, entry)
+    _count(entry)
     return f
+
+
+def packed_density(feat, n_occ, nbr_pos, jb, gcounts, params: SimParams):
+    """K3 → rp [c_rows, 2, lanes] (rho, EOS p), lane-major."""
+    return _density("packed_density", feat, n_occ, nbr_pos, jb, gcounts,
+                    params)
+
+
+def packed_force(feat, rp, n_occ, nbr_pos, jb, gcounts, params: SimParams):
+    """K4 → f [c_rows, FOUT, lanes], lane-major (components >= D zero)."""
+    return _force("packed_force", feat, rp, n_occ, nbr_pos, jb, gcounts,
+                  params)
+
+
+def packed_density_simple(feat, n_occ, nbr_pos, jb, gcounts,
+                          params: SimParams):
+    """K3 as first designed (one 128-thread block per 128-lane block and
+    row): the warp kernel's yardstick, bitwise its results.  Arguments as
+    `packed_density`."""
+    return _density("packed_density_simple", feat, n_occ, nbr_pos, jb,
+                    gcounts, params)
+
+
+def packed_force_simple(feat, rp, n_occ, nbr_pos, jb, gcounts,
+                        params: SimParams):
+    """K4 as first designed: the warp kernel's yardstick, bitwise its
+    results.  Arguments as `packed_force`."""
+    return _force("packed_force_simple", feat, rp, n_occ, nbr_pos, jb,
+                  gcounts, params)
+
+
+def packed_density_variant(feat, n_occ, nbr_pos, jb, gcounts,
+                           params: SimParams, warps: int, tile: int,
+                           prefetch: bool, band: bool):
+    """The warp K3 with the given launch choices (warps a block 1-8, tile
+    32, 64 or 128, `prefetch` of the next tile, `band`: test the last
+    coordinate first and skip the candidates beyond h in it), bitwise
+    `packed_density`; for measuring the choices."""
+    return _density("packed_density_variant", feat, n_occ, nbr_pos, jb,
+                    gcounts, params,
+                    (warps, tile, int(prefetch), int(band)))
+
+
+def packed_force_variant(feat, rp, n_occ, nbr_pos, jb, gcounts,
+                         params: SimParams, warps: int, tile: int,
+                         prefetch: bool, band: bool):
+    """The warp K4 with the given launch choices (as
+    `packed_density_variant`), bitwise `packed_force`."""
+    return _force("packed_force_variant", feat, rp, n_occ, nbr_pos, jb,
+                  gcounts, params, (warps, tile, int(prefetch), int(band)))
+
+
+def default_choices() -> dict:
+    """The launch choices `packed_density` and `packed_force` use, by
+    kernel ("density", "force")."""
+    out = (ctypes.c_int * 8)()
+    _build.library("packed_kernels").packed_defaults(out)
+    keys = ("warps", "tile", "prefetch", "band")
+    return {"density": dict(zip(keys, out[:4])),
+            "force": dict(zip(keys, out[4:]))}

@@ -1,6 +1,6 @@
 """The CUDA kernels (K1-K5, P1) on a card against their plain PyTorch
-versions, the staged K1/K2 bitwise against their simple yardsticks, and
-the port's paths through them.  Every test here is marked `gpu` and skips
+versions, the staged K1/K2 and the warp K3/K4 bitwise against their simple
+yardsticks, and the port's paths through them.  Every test here is marked `gpu` and skips
 without a card (decided inside the test).  The file imports neither JAX
 nor `sph_tpu`, so it also runs where those are not installed:
 
@@ -30,6 +30,14 @@ def _slot_launches(n: int) -> dict:
     kernel and no yardstick."""
     out = dict.fromkeys(slot_kernels.LAUNCHES, 0)
     out.update(slot_density=n, slot_force=n)
+    return out
+
+
+def _packed_launches(n: int) -> dict:
+    """packed LAUNCHES after a path that ran K3/K4 n times each: no
+    yardstick and no variant."""
+    out = dict.fromkeys(packed_kernels.LAUNCHES, 0)
+    out.update(packed_density=n, packed_force=n)
     return out
 
 
@@ -194,11 +202,12 @@ def test_run_on_card_goes_through_the_kernels():
     assert float((state.x.cpu() - host.x).abs().max() / xs) < 1e-4
 
 
-def _packed_slots(dim, row_lanes, kw, dev, seed=53):
-    """A cloud in a narrow tall box: rows hold several hundred particles,
-    so neighbor rows span more than one 128-lane block."""
+def _packed_slots(dim, row_lanes, kw, dev, seed=53, n=None):
+    """A cloud in a narrow tall box: rows hold several hundred particles
+    (`n` at its default), so neighbor rows span more than one 128-lane
+    block."""
     rng = np.random.default_rng(seed)
-    n = 1500 if dim == 2 else 6000
+    n = n or (1500 if dim == 2 else 6000)
     hi = (48.0, 400.0) if dim == 2 else (48.0, 64.0, 400.0)
     x = rng.uniform(-5.0, 1.0, (n, dim)).astype(np.float32)
     x = (x + 5.0) / 6.0 * (np.asarray(hi, np.float32) + 10.0) - 5.0
@@ -292,7 +301,7 @@ def test_packed_run_on_card_goes_through_the_packed_kernels():
     # reference; this Euler scene has none
     primes = int(scene.params.integrator == "leapfrog")
     assert slot_kernels.LAUNCHES == _slot_launches(primes)
-    assert packed_kernels.LAUNCHES == {"packed_density": 8, "packed_force": 8}
+    assert packed_kernels.LAUNCHES == _packed_launches(8)
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.run(scene, 8, method="pallas", packed_rows=True, sort_every=4,
                     steps_per_dispatch=8, device="cpu")
@@ -342,7 +351,7 @@ def test_production_default_on_card_goes_through_the_kernels():
     torch.cuda.synchronize()
     want = 16 + 4 * audited.healed
     assert slot_kernels.LAUNCHES == _slot_launches(want)
-    assert packed_kernels.LAUNCHES == {"packed_density": 0, "packed_force": 0}
+    assert packed_kernels.LAUNCHES == _packed_launches(0)
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.make_audited_advance(scene, "pallas", 16, sort_every=4,
                                      slot_resident=True, device="cpu")
@@ -452,3 +461,73 @@ def test_staged_kernels_bitwise_simple_at_the_edges(dim, bf16):
     assert n_occ < sg.c_rows - 1                       # rows past n_occ
     assert _holes(feat, addr, 0.1, seed=dim) > 0
     _staged_vs_simple(params, sg, feat, addr)
+
+
+def _warp_vs_simple(params, feat, args):
+    """The warp K3/K4 and their simple yardsticks on the same inputs, and
+    the warp kernels at every launch choice: every output element bitwise;
+    launches counted under their own names."""
+    before = dict(packed_kernels.LAUNCHES)
+    rp = packed_kernels.packed_density(feat, *args)
+    rp_s = packed_kernels.packed_density_simple(feat, *args)
+    f = packed_kernels.packed_force(feat, rp, *args)
+    f_s = packed_kernels.packed_force_simple(feat, rp, *args)
+    torch.cuda.synchronize()
+    for name in ("packed_density", "packed_force", "packed_density_simple",
+                 "packed_force_simple"):
+        assert packed_kernels.LAUNCHES[name] == before[name] + 1
+    assert _bitwise(rp, rp_s)
+    assert _bitwise(f, f_s)
+    for warps in (1, 4, 8):
+        for tile in (32, 64, 128):
+            for prefetch in (False, True):
+                for band in (False, True):
+                    assert _bitwise(rp, packed_kernels.packed_density_variant(
+                        feat, *args, warps, tile, prefetch, band))
+                    assert _bitwise(f, packed_kernels.packed_force_variant(
+                        feat, rp, *args, warps, tile, prefetch, band))
+    assert bool(torch.isfinite(rp).all() and torch.isfinite(f).all())
+    return rp, f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dim,row_lanes,n",
+    [(2, 128, None), (2, 256, None), (2, 384, None), (2, 512, None),
+     (2, 640, 300), (3, 128, None), (3, 256, None), (3, 384, None),
+     (3, 512, None), (3, 640, None), (3, 384, 1500)],
+)
+def test_warp_packed_kernels_bitwise_simple(dim, row_lanes, n):
+    """The warp K3/K4 give the first design's bits at every row width,
+    rows over 128 particles (dense clouds), rows of a few dozen (sparse),
+    rows past n_occ and the dummy row 0; the plain versions agree at the
+    fp32 tolerances."""
+    dev = _card()
+    params, sg, addr, feat = _packed_slots(dim, row_lanes, {}, dev,
+                                           seed=60 + dim + row_lanes, n=n)
+    jb = ps._jblocks(addr, sg)
+    assert int(addr.n_occ[0]) < sg.c_rows - 1 and int(jb[0]) == 0
+    assert int(jb.max()) >= 2 or row_lanes == 128 or n is not None
+    args = (addr.n_occ, addr.nbr_pos, jb, addr.gcounts, params)
+    rp, f = _warp_vs_simple(params, feat, args)
+    rp_p = packed_kernels.packed_density_plain(feat, *args)
+    f_p = packed_kernels.packed_force_plain(feat, rp, *args)
+    assert torch.allclose(rp[:, 0], rp_p[:, 0], rtol=RHO_RTOL, atol=RHO_ATOL)
+    scale = float(f_p.abs().max())
+    assert scale > 0 and float((f - f_p).abs().max()) / scale < FTOL
+
+
+@pytest.mark.gpu
+def test_warp_packed_kernels_bitwise_simple_on_an_empty_scene():
+    """n_occ == 0: both designs write zeros and nothing else."""
+    dev = _card()
+    params, sg, _, _ = _packed_slots(3, 256, {}, dev)
+    none = torch.zeros(600, dtype=torch.bool, device=dev)
+    scene = port.Scene(params=params, lo=(0.0,) * 3, hi=(48.0, 64.0, 400.0))
+    grid = neighbors.GridSpec.for_scene(scene, cap=64)
+    addr = ps.build_addr(torch.zeros((600, 3), device=dev), none, grid, sg)
+    feat = ps.scatter_slots(addr, torch.zeros((600, 6), device=dev), sg)
+    args = (addr.n_occ, addr.nbr_pos, ps._jblocks(addr, sg), addr.gcounts,
+            params)
+    rp, f = _warp_vs_simple(params, feat, args)
+    assert int(addr.n_occ[0]) == 0 and not rp.any() and not f.any()

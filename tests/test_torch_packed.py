@@ -192,7 +192,7 @@ def test_packed_raw_arrays_zero_outside_live_lanes():
     assert not rp[:, 0][empty].any() and not rp[:, 1][empty].any()
     assert (rp[:, 0][~empty] > 0).all()
     assert not f[:, 0][empty].any() and not f[:, tp.dim:].any()
-    assert packed_kernels.LAUNCHES == {"packed_density": 0, "packed_force": 0}
+    assert not any(packed_kernels.LAUNCHES.values())
 
 
 def test_all_inactive_cloud():

@@ -16,6 +16,16 @@ is at or above `cut2` (r at least h (1 + 2^-16)), where t = max(h - r, 0)
 is 0: its sum without them must be bitwise the full one too.  A host model
 of the kernels' window compaction checks that the range each i-slot reads
 lists exactly its real candidates, in order.
+
+The warp K3/K4 (`csrc/packed_kernels.cu`) rest on the same claim on packed
+rows: in the order neighbor row, block, lane, a sum over every particle of
+the neighbor rows (what the first design adds) and the sum over only those
+with r^2 < h^2 (K3) or r^2 < cut2 (K4), or over only those whose last
+coordinate lies within the band (`band_cut`), are bitwise equal, on packed
+clouds with rows over 128 particles.  Host models of the warp kernels'
+unit map (one warp per row and 32-lane chunk, chunk-major) and of their
+candidate walk check that every live lane is computed once and every
+candidate read once, in order.
 """
 
 import numpy as np
@@ -23,7 +33,8 @@ import pytest
 import torch
 
 import sph_tpu_torch as port
-from sph_tpu_torch import neighbors, pallas_step as ps, slot_kernels as sk
+from sph_tpu_torch import neighbors, packed_kernels as pk, pallas_step as ps
+from sph_tpu_torch import slot_kernels as sk
 from sph_tpu_torch.kernels import kernel_constants
 
 torch.set_num_threads(1)
@@ -204,3 +215,196 @@ def test_staged_window_ranges_list_the_real_candidates(dim, cap, xsub):
                     assert got.tolist() == want
                     checked += 1
     assert checked > 0
+
+
+# (dim, row_lanes, particles): dense rows over 128 particles (and, at row
+# lanes 128 and 256, past the row's capacity), and sparse rows of ~30
+PACKED_CASES = [(2, 128, 900), (2, 512, 1500), (2, 384, 200), (3, 256, 3000),
+                (3, 640, 3000), (3, 384, 700)]
+WARP, BLOCK = 32, sk.LANE
+
+
+def _band_cut(length: float) -> float:
+    """The warp kernels' band half-width (`band_cut` in
+    csrc/packed_kernels.cu): length (1 + 2^-13), in double, rounded up to
+    fp32."""
+    r = np.float32(length * (1.0 + 1.0 / 8192.0))
+    return float(np.nextafter(r, np.float32(np.inf)))
+
+
+def _packed_cloud(dim, row_lanes, n, seed):
+    """(params, sg, addr, feat, jb) of a random cloud in a narrow tall box
+    on the packed-row layout: rows hold up to several hundred particles."""
+    rng = np.random.default_rng(seed)
+    hi = (48.0, 400.0) if dim == 2 else (48.0, 32.0, 400.0)
+    x = rng.uniform(-5.0, 1.0, (n, dim)).astype(np.float32)
+    x = (x + 5.0) / 6.0 * (np.asarray(hi, np.float32) + 10.0) - 5.0
+    v = rng.uniform(-5.0, 5.0, (n, dim)).astype(np.float32)
+    params = port.SimParams(dim=dim, gravity=(0.0,) * dim)
+    scene = port.Scene(params=params, lo=(0.0,) * dim, hi=hi)
+    grid = neighbors.GridSpec.for_scene(scene, cap=64)
+    sg = ps.packed_grid(grid, row_lanes)
+    xt, vt = torch.from_numpy(x), torch.from_numpy(v)
+    addr = ps.build_addr(xt, torch.ones(n, dtype=torch.bool), grid, sg)
+    feat = ps.scatter_slots(addr, ps._pack_rows6(xt, vt), sg)
+    return params, sg, addr, feat, ps._jblocks(addr, sg)
+
+
+def _packed_candidates(params, addr, feat, jb):
+    """Per chunk of live i-lanes: (row, lane, nr, j, xi, xj, visited), the
+    candidates in the kernels' order (neighbor row, block, lane) over the
+    widest row, and `visited` = the lane lies below its block's particle
+    count, i.e. the first design adds its term.  Checks that the visited
+    lanes are exactly the real ones (a row's particles are a prefix)."""
+    gcounts = addr.gcounts[:, 0, :]
+    for row, lane, nr, j in pk._chunks(feat, addr.n_occ, addr.nbr_pos, jb,
+                                       addr.gcounts):
+        m, n_r = nr.shape
+        cnt = gcounts[nr[:, :, None], (j // BLOCK)[None, None, :]]
+        visited = ((j % BLOCK)[None, None, :] < cnt).reshape(m, -1)
+        xi = [feat[row, c, lane][:, None] for c in range(params.dim)]
+        xj = [pk._take(feat, nr, j, c) for c in range(params.dim)]
+        assert torch.equal(visited, xj[0] < EMPTY)
+        yield row, lane, nr, j, xi, xj, visited
+
+
+@pytest.mark.parametrize("dim,row_lanes,n", PACKED_CASES)
+def test_packed_density_sum_skipping_far_candidates_is_bitwise(dim,
+                                                               row_lanes, n):
+    params, _, addr, feat, jb = _packed_cloud(dim, row_lanes, n, seed=dim + n)
+    assert (int(jb.max()) >= 2) == (row_lanes > 128 and n >= 900)
+    h2 = float(np.float32(params.h * params.h))
+    hx = _band_cut(np.sqrt(h2))
+    n_far = n_out = 0
+    for *_, xi, xj, visited in _packed_candidates(params, addr, feat, jb):
+        d = xi[0] - xj[0]
+        r2 = d * d
+        for c in range(1, dim):
+            d = xi[c] - xj[c]
+            r2 = r2 + d * d
+        q = torch.clamp(h2 - r2, min=0.0)
+        terms = q * q * q
+        near = visited & (r2 < h2)
+        band = visited & ((xi[-1] - xj[-1]).abs() < hx)
+        assert not bool(terms[visited & ~near].any())   # each dropped is +-0
+        assert not bool(terms[visited & ~band].any())
+        n_far += int((visited & ~near).sum())
+        n_out += int((visited & ~band).sum())
+        full = _bits(_seq(terms, visited))
+        assert torch.equal(full, _bits(_seq(terms, near)))
+        assert torch.equal(full, _bits(_seq(terms, band)))
+    assert n_far > 0 and n_out > 0
+
+
+@pytest.mark.parametrize("dim,row_lanes,n", PACKED_CASES)
+def test_packed_force_sum_skipping_far_candidates_is_bitwise(dim, row_lanes,
+                                                             n):
+    params, _, addr, feat, jb = _packed_cloud(dim, row_lanes, n,
+                                              seed=100 + dim + n)
+    args = (addr.n_occ, addr.nbr_pos, jb, addr.gcounts)
+    rp = pk.packed_density_plain(feat, *args, params)
+    _, c_s, c_v = kernel_constants(dim, params.h, params.kernel_norm)
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    h, c_s, c_v = f32(params.h), f32(c_s), f32(c_v)
+    m_half, mu_m = f32(params.mass * 0.5), f32(params.viscosity * params.mass)
+    cut2 = _force_cut2(params.h)
+    hx = _band_cut(h)
+    n_far = n_out = 0
+    for row, lane, nr, j, xi, xj, visited in _packed_candidates(params, addr,
+                                                                feat, jb):
+        dx = [xi[c] - xj[c] for c in range(dim)]
+        r2 = dx[0] * dx[0]
+        for c in range(1, dim):
+            r2 = r2 + dx[c] * dx[c]
+        near = visited & (r2 < cut2)
+        band = visited & ((xi[-1] - xj[-1]).abs() < hx)
+        assert not bool((band < near).any())    # the band holds every near one
+        inv_r = 1.0 / torch.sqrt(torch.clamp(r2, min=1e-24))
+        t = torch.clamp(h - r2 * inv_r, min=0.0)
+        s_r = torch.where(r2 > 1e-24, c_s * t * t * inv_r, 0.0)
+        inv_rho_j = 1.0 / torch.clamp(pk._take(rp, nr, j, 0), min=1e-12)
+        p_i = rp[row, 1, lane][:, None]
+        coef_p = m_half * (p_i + pk._take(rp, nr, j, 1)) * inv_rho_j * s_r
+        coef_v = mu_m * inv_rho_j * (c_v * t)
+        n_far += int((visited & ~near).sum())
+        n_out += int((visited & ~band).sum())
+        assert not bool(t[visited & ~near].any())
+        for c in range(dim):
+            v_i = feat[row, 3 + c, lane][:, None]
+            terms = coef_p * dx[c] + coef_v * (pk._take(feat, nr, j, 3 + c)
+                                               - v_i)
+            assert not bool(terms[visited & ~near].any())
+            full = _bits(_seq(terms, visited))
+            assert torch.equal(full, _bits(_seq(terms, near)))
+            assert torch.equal(full, _bits(_seq(terms, band)))
+    assert n_far > 0 and n_out > 0
+
+
+def _units(c_rows, lanes, n_occ, gcounts):
+    """The warp kernels' unit map on the host (`unit_of` in
+    csrc/packed_kernels.cu): unit u = chunk * c_rows + row covers lanes
+    chunk*32 .. chunk*32+31 of its row, and is live when the row is in
+    1..n_occ and the chunk starts below its 128-lane block's count."""
+    per_block = BLOCK // WARP
+    for u in range(c_rows * (lanes // WARP)):
+        chunk, row = divmod(u, c_rows)
+        live = (1 <= row <= n_occ and gcounts[row, chunk // per_block]
+                > (chunk % per_block) * WARP)
+        yield row, range(chunk * WARP, (chunk + 1) * WARP), live
+
+
+def _tiles(nbr, jb, gcounts, row, tile):
+    """The warp kernels' candidate walk on the host (`list_segments`,
+    `Fetch::load`): segment k = (s, jg) holds block jg of neighbor row s
+    (none past the row's occupied blocks), the segments concatenate into
+    one list, and tile after tile of `tile` list indices each lane's slot
+    moves its segment cursor forward to the index it loads.  Yields (row,
+    lane) per list index, in order."""
+    n_groups = gcounts.shape[1]
+    nrow, cnt, jgs = [], [], []
+    for s in range(nbr.shape[0]):
+        nr = int(nbr[s, row])
+        for jg in range(n_groups):
+            nrow.append(nr)
+            jgs.append(jg)
+            cnt.append(int(gcounts[nr, jg]) if jg < jb[nr] else 0)
+    start = np.concatenate([[0], np.cumsum(cnt)])
+    seg = [0] * (tile // WARP)
+    for g0 in range(0, int(start[-1]), tile):
+        for q in range(min(tile, int(start[-1]) - g0)):
+            m, g = q // WARP, g0 + q
+            while start[seg[m] + 1] <= g:
+                seg[m] += 1
+            k = seg[m]
+            yield nrow[k], jgs[k] * BLOCK - int(start[k]) + g
+
+
+@pytest.mark.parametrize("dim,row_lanes,n", PACKED_CASES)
+def test_packed_warp_units_and_tiles_cover_each_lane_once(dim, row_lanes, n):
+    """Every real lane of rows 1..n_occ lies in exactly one live unit and
+    in no dead one; and each live unit's walk, at every tile size, reads
+    every particle of its neighbor rows once, in the order neighbor row,
+    block, lane (the first design's)."""
+    _, sg, addr, feat, jb = _packed_cloud(dim, row_lanes, n, seed=7 + n)
+    c_rows, _, lanes = feat.shape
+    n_occ = int(addr.n_occ[0])
+    gcounts, nbr = addr.gcounts[:, 0].numpy(), addr.nbr_pos.numpy()
+    jb = jb.numpy()
+    real = (feat[:, 0] < EMPTY).numpy()
+    assert n_occ < c_rows - 1 and jb[0] == 0
+    seen = np.zeros_like(real, dtype=np.int64)
+    live_rows = set()
+    for row, lane_range, live in _units(c_rows, lanes, n_occ, gcounts):
+        lanes_u = np.asarray(lane_range)
+        if not live:
+            assert not real[row, lanes_u].any()
+            continue
+        seen[row, lanes_u] += real[row, lanes_u]
+        live_rows.add(row)
+    assert np.array_equal(seen[1 : n_occ + 1], real[1 : n_occ + 1])
+    assert not real[n_occ + 1 :].any() and not real[0].any()
+    for row in sorted(live_rows):
+        want = [(int(nbr[s, row]), jl) for s in range(nbr.shape[0])
+                for jl in np.nonzero(real[nbr[s, row]])[0]]
+        for tile in (32, 64, 128):
+            assert list(_tiles(nbr, jb, gcounts, row, tile)) == want
