@@ -114,6 +114,30 @@ Phases, each printed as one JSON line:
               ms, Top/s, ratio, bound; the SASS opcode counts of
               both kernels (cuobjdump -sass): packed bf16 instructions in
               the bf16 kernel, no FFMA in the fp32 one
+ 26. kernels  (run with phase 3) K1/K2 at dam3d_100k and splash3d_1m on the
+              cap-8 lattice of the adaptive policy (its occupancy-fit skin,
+              `step.cap8_skin`, on the step-0 state): phase 3's checks,
+              bitwise yardstick, times and bound
+ 27. path     the cap-8 policy, run(..., sort_every=4, slot_resident=True,
+              adaptive_cap=True) in one dispatch, at dam3d_100k (200 steps)
+              and splash3d_1m (20): phase 14's checks, the skin, mode and
+              heals; in turns with resident4auto the host ms/step and the
+              device ms a step of a 12-step dispatch (profile); x of the two
+              after 20 steps within 1e-3 h
+ 28. path     a jet (dam3d_100k's block at 2000 along x) outgrows cap 8:
+              the policy switches to the default cap, and the switching
+              dispatch equals the per-step path bitwise
+ 29. path     method="grid" (plain PyTorch, no kernel) at dam2d_10k (200
+              steps) and dam3d_100k (10): health, no kernel launched,
+              ms/step; against method="pallas" after 10 steps, x within
+              1e-3 h
+ 30. cli      `python -m sph_tpu_torch.cli` in subprocesses: run dam3d_100k
+              (--method auto, --render: metrics.jsonl finite with
+              advance_mode and no cap dropped, PNGs that decode), run
+              splash3d_1m --adaptive-cap, run emitters3d --resume from the
+              checkpoint, run dam2d_10k --debug, record dam2d_10k (a
+              10-frame APNG from the native encoder), a contradictory flag
+              set (exit 2, one line) and the card hidden (exit 1, one line)
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
@@ -126,15 +150,18 @@ neither JAX nor `sph_tpu`.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import torch
@@ -387,7 +414,7 @@ def phase_build():
           "staged_dynamic_smem_bytes": {
               f"{kind} cap {cap} xm {xm}": lib.slot_stage_bytes(force, cap, xm)
               for kind, force in (("K1", 0), ("K2", 1))
-              for cap, xm in ((16, 1), (8, 2))}})
+              for cap, xm in ((16, 1), (8, 1), (8, 2))}})
     from sph_tpu_torch import packed_kernels as pk
 
     emit({"phase": "build", "library": "packed_kernels", "kernels":
@@ -494,7 +521,8 @@ def phase_kernels(preset_name: str, dev, state=None, grid=None,
                   lattice: str = "per step"):
     """K1 and K2 against their plain versions and bitwise their simple
     yardsticks on the slot arrays of `state` (default: the preset's step 0)
-    built on `grid` (default: the per-step lattice)."""
+    built on `grid` (default: the per-step lattice), which drop no
+    particle."""
     from sph_tpu_torch import init, pallas_step as ps, preset
     from sph_tpu_torch import slot_kernels as sk
 
@@ -505,6 +533,7 @@ def phase_kernels(preset_name: str, dev, state=None, grid=None,
     sg, addr, feat = slot_inputs(scene, state, grid=grid)
     args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params)
     where = f"{preset_name}, lattice {lattice}"
+    check(int(addr.overflow) == 0, f"no particle dropped at {where}")
 
     rp_k = sk.slot_density(feat, *args)
     rp_p = sk.density_plain(feat, *args)
@@ -545,6 +574,7 @@ def phase_kernels(preset_name: str, dev, state=None, grid=None,
                      **in_turns(kern, simple), "plain_ms": cuda_ms(plain),
                      "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "kernels", "preset": preset_name, "lattice": lattice,
+          "slot_cap": sg.cap, "cell": grid.cell if grid is not None else None,
           "feat": list(feat.shape), "n_groups": sg.n_groups,
           "n_occ": int(addr.n_occ[0]), "particles": int(ok.sum()),
           "pairs": counts, "f_max_rel_err": f_err / f_scale,
@@ -826,6 +856,7 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
             "repaired": sum(getattr(a, "repaired", 0) for a in made),
             "rebuilds": sum(getattr(a, "rebuilds", 0) for a in made),
             "modes": [a.mode for a in made if hasattr(a, "mode")],
+            "cap8_skins": [a.skin for a in made if hasattr(a, "skin")],
             "repair_k": step_mod.default_repair_k(
                 scene, auto=True, xsub=xsub,
                 row_pair=bool(run_kw.get("row_pair")),
@@ -1086,17 +1117,19 @@ def phase_resident_agreement(dev, n_steps: int = 20):
     check(same, "two resident4auto runs give bitwise-equal x")
 
 
-def phase_profile_resident(name: str, scene, state, n_steps: int, dev):
-    """One `n_steps`-step resident4auto dispatch under torch.profiler,
-    after one warm dispatch: device time per step by kernel, operations per
-    step, busy share, and the host fetches per block."""
+def phase_profile_resident(name: str, scene, state, n_steps: int, dev,
+                           **policy):
+    """One `n_steps`-step resident4auto dispatch (with `policy`, e.g.
+    adaptive_cap=True, on top) under torch.profiler, after one warm
+    dispatch: device time per step by kernel, operations per step, busy
+    share, and the host fetches per block."""
     from torch.profiler import ProfilerActivity, profile
 
     from sph_tpu_torch import make_audited_advance, prime
     from sph_tpu_torch import step as step_mod
 
     adv = make_audited_advance(scene, "pallas", n_steps, device=dev,
-                               **RESIDENT)
+                               **RESIDENT, **policy)
     if scene.params.integrator == "leapfrog":
         state = prime(scene, state, "pallas", device=dev)
     state = adv(state)
@@ -1118,7 +1151,9 @@ def phase_profile_resident(name: str, scene, state, n_steps: int, dev):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     emit({"phase": "profile", "preset": name, "steps": n_steps,
-          "run": RESIDENT, "healed": adv.healed - before[0],
+          "run": {**RESIDENT, **policy}, "mode": adv.mode,
+          "cap8_skin": getattr(adv, "skin", None),
+          "healed": adv.healed - before[0],
           "rebuilds": adv.rebuilds - before[1],
           "repaired": adv.repaired - before[2], "host_fetches": fetches,
           "wall_ms_per_step_profiled": wall / n_steps * 1e3,
@@ -1127,6 +1162,7 @@ def phase_profile_resident(name: str, scene, state, n_steps: int, dev):
           "device_ops_per_step": sum(r[1] for r in rows),
           "top": [{"ms_per_step": ms, "per_step": c, "name": k[:90]}
                   for ms, c, k in rows[:12]]})
+    return busy
 
 
 def bf16_scene(scene):
@@ -1481,6 +1517,316 @@ def phase_probe(dev):
     return res
 
 
+# --- the cap-8 policy, the grid method and the command line ----------------
+
+CAP8 = dict(RESIDENT, adaptive_cap=True)
+ROOT = Path(__file__).resolve().parent
+
+
+def cap8_lattice(scene, state):
+    """(skin, GridSpec) of the cap-8 lattice the adaptive policy picks for
+    `state`: the widest occupancy-fit skin (`step.cap8_skin`)."""
+    from sph_tpu_torch import neighbors
+    from sph_tpu_torch.step import cap8_skin
+
+    skin = cap8_skin(scene, state, RESIDENT["sort_every"])
+    check(skin is not None, "a cap-8 lattice fits the preset's step 0")
+    return skin, neighbors.GridSpec.for_scene(scene, cap=8, skin=skin)
+
+
+def timed_run(scene, state, n_steps: int, dev, **kw) -> float:
+    """Host ms/step of run(...) ended by a synchronize (its notes dropped)."""
+    from sph_tpu_torch import run
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        run(scene, n_steps, method="pallas", state=state, device=dev, **kw)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_steps * 1e3
+
+
+def phase_cap8(name: str, dev) -> dict:
+    """The cap-8 adaptive policy through `run` (one dispatch of at most 100
+    steps, so that no remainder runs on the default cap) with the checks
+    of phase 14; then in turns with resident4auto (resident, cap 8, cap 8,
+    resident): host ms/step of the path, and device ms a step of one
+    12-step dispatch (profile); and x of the two after 20 steps within
+    1e-3 h."""
+    from sph_tpu_torch import init, preset, run
+
+    scene, n_steps = preset(name), DEPTH[name]
+    spd = min(n_steps, 100)
+    s0 = init(scene, device=dev)
+    out = phase_path(name, scene, s0, n_steps, dev,
+                     run_kw=dict(CAP8, steps_per_dispatch=spd),
+                     rho_band=(0.90, 1.10))
+    launches, pol = out["launches"], out["policy"]
+    want = resident_launches(out, n_steps,
+                             int(scene.params.integrator == "leapfrog"))
+    check(launches["slot_density"] == launches["slot_force"] == want,
+          f"K1/K2 launched {want} times on the cap-8 policy at {name}")
+    check(launches["packed_density"] == launches["packed_force"]
+          == launches["stage_transpose"] == 0,
+          f"no K3/K4/K5 launch on the cap-8 policy at {name}")
+    check(pol["modes"] in (["cap8"], ["cap16"])
+          and pol["cap8_skins"][0] is not None,
+          f"the cap-8 policy probed a lattice at {name}")
+    host = {"resident4auto": [], "cap8": []}
+    device = {"resident4auto": [], "cap8": []}
+    order = ("resident4auto", "cap8", "cap8", "resident4auto")
+    for key in order:
+        kw = RESIDENT if key == "resident4auto" else CAP8
+        host[key].append(timed_run(scene, s0, n_steps, dev,
+                                   steps_per_dispatch=spd, **kw))
+    for key in order:
+        policy = {} if key == "resident4auto" else {"adaptive_cap": True}
+        device[key].append(phase_profile_resident(name, scene, s0, 12, dev,
+                                                  **policy))
+    with contextlib.redirect_stderr(io.StringIO()):
+        a = run(scene, 20, method="pallas", state=s0, device=dev,
+                steps_per_dispatch=20, **CAP8)
+        b = run(scene, 20, method="pallas", state=s0, device=dev,
+                steps_per_dispatch=20, **RESIDENT)
+    act = a.active
+    same_active = bool(torch.equal(act, b.active))
+    dx = float((a.x[act] - b.x[act]).abs().max())
+    limit = 1e-3 * scene.params.h
+    emit({"phase": "cap8", "preset": name, "steps": n_steps,
+          "steps_per_dispatch": spd, "skin": pol["cap8_skins"][0],
+          "mode": pol["modes"][-1], "healed": pol["healed"],
+          "rebuilds": pol["rebuilds"], "repaired": pol["repaired"],
+          "host_ms_per_step": host,
+          "host_ms_per_step_note": "host clock over run(), prime included, "
+                                   "in turns (resident, cap 8, cap 8, "
+                                   "resident)",
+          "device_ms_per_step": device,
+          "agreement": {"steps": 20, "a": "cap 8", "b": "resident4auto",
+                        "max_abs_dx": dx, "limit": limit,
+                        "same_active": same_active,
+                        "bitwise": {f: bool(torch.equal(getattr(a, f),
+                                                        getattr(b, f)))
+                                    for f in ("x", "v", "rho")}}})
+    check(same_active and dx < limit,
+          f"cap 8 vs resident4auto x within 1e-3 h at {name}")
+    return out
+
+
+def phase_cap8_switch(dev, spd: int = 8, max_dispatches: int = 10):
+    """A jet outgrows cap 8 on the card: dam3d_100k's block at 2000 along x
+    (the reference's jet, tests/test_pallas_equiv.py:447-490), run by the
+    cap-8 policy until it switches.  With two blocks a dispatch the policy
+    switches only when both heal (more than max(1, blocks // 8)), so the
+    switching dispatch is the exact per-step re-run of both blocks and
+    equals bitwise the per-step path from the same state; one more
+    dispatch runs on the default cap."""
+    from sph_tpu_torch import init, make_advance, make_audited_advance
+    from sph_tpu_torch import preset, prime
+
+    base = preset("dam3d_100k")
+    jet = base.replace(blocks=tuple(
+        dataclasses.replace(b, velocity=(2000.0, 0.0, 0.0))
+        for b in base.blocks))
+    state = init(jet, device=dev)
+    if jet.params.integrator == "leapfrog":
+        state = prime(jet, state, "pallas", device=dev)
+    adv = make_audited_advance(jet, "pallas", spd, device=dev, **CAP8)
+    notes = io.StringIO()
+    reset_counts()
+    healed = []
+    for _ in range(max_dispatches):
+        before, start = state, int(state.step)
+        with contextlib.redirect_stderr(notes):
+            state = adv(before)
+        healed.append(adv.healed - sum(healed))
+        if adv.mode != "cap8":
+            break
+    launches = read_counts("the cap-8 switch")
+    check(adv.mode == "cap16", "the jet switches cap 8 -> the default cap")
+    exact = make_advance(jet, "pallas", steps_per_dispatch=spd,
+                         device=dev)(before)
+    same = all(bool(torch.equal(getattr(state, f), getattr(exact, f)))
+               for f in ("x", "v", "acc", "rho", "p", "step"))
+    with contextlib.redirect_stderr(notes):
+        after = adv(state)
+    torch.cuda.synchronize()
+    emit({"phase": "cap8_switch", "preset": "dam3d_100k jet",
+          "particles": int(state.n_active()), "steps_per_dispatch": spd,
+          "skin": adv.skin, "switch_step": start,
+          "healed_per_dispatch": healed, "mode": adv.mode,
+          "bitwise_per_step": same, "launches": launches,
+          "notes": notes.getvalue().strip().splitlines()})
+    check(healed[-1] == spd // RESIDENT["sort_every"],
+          "every block of the switching dispatch healed")
+    check(same, "the switching dispatch equals the per-step path bitwise")
+    check(adv.mode == "cap16" and int(after.step) == start + 2 * spd
+          and bool(torch.isfinite(after.x).all()),
+          "the next dispatch runs on the default cap")
+
+
+def phase_grid(name: str, n_steps: int, dev) -> None:
+    """method="grid" (cell tiles in plain PyTorch, no kernel of its own;
+    the reference's is XLA code): health, no hand-written kernel launched,
+    host ms/step and peak memory; then 10 steps against method="pallas"
+    per step: x within 1e-3 h."""
+    from sph_tpu_torch import init, neighbors, preset, run
+
+    scene = preset(name)
+    s0 = init(scene, device=dev)
+    grid = neighbors.GridSpec.for_scene(scene)
+
+    def dropped(st) -> int:
+        return max(int(neighbors.cell_overflow(st.x, st.active, grid)), 0)
+
+    n_start, over = int(s0.n_active()), dropped(s0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run(scene, n_steps, method="grid", state=s0, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(f"{name} grid")
+    peak = torch.cuda.max_memory_allocated()
+    over = max(over, dropped(out))
+    hl = health(out, scene)
+    a = run(scene, 10, method="grid", state=s0, device=dev)
+    b = run(scene, 10, method="pallas", state=s0, device=dev)
+    act = a.active
+    dx = float((a.x[act] - b.x[act]).abs().max())
+    limit = 1e-3 * scene.params.h
+    emit({"phase": "path", "preset": name, "method": "grid",
+          "steps": n_steps, **hl, "particles_at_start": n_start,
+          "ms_per_step": wall / n_steps * 1e3,
+          "ms_per_step_note": "host clock over run(), prime included; "
+                              "plain PyTorch, no hand-written kernel",
+          "peak_bytes": peak, "cell_overflow": over, "launches": launches,
+          "agreement": {"steps": 10, "b": "pallas per step",
+                        "max_abs_dx": dx, "limit": limit}})
+    check_health(f"{name} grid", hl, n_start, over, (0.90, 1.10))
+    check(not any(launches.values()),
+          f"the grid method launches no hand-written kernel at {name}")
+    check(bool(torch.equal(act, b.active)) and dx < limit,
+          f"grid vs pallas x within 1e-3 h at {name}")
+
+
+def png_chunks(data: bytes) -> list:
+    """[(tag, payload)] of a PNG, each chunk's CRC checked."""
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
+    out, pos = [], 8
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, payload = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        check(zlib.crc32(tag + payload) & 0xFFFFFFFF == crc, "PNG chunk CRC")
+        out.append((tag, payload))
+        pos += 12 + n
+    return out
+
+
+def decode_png(data: bytes) -> tuple[int, int]:
+    """(width, height) of an RGB8 PNG whose pixel rows inflate whole."""
+    chunks = png_chunks(data)
+    w, h, depth, color = struct.unpack(">IIBB", chunks[0][1][:10])
+    raw = zlib.decompress(b"".join(p for t, p in chunks if t == b"IDAT"))
+    check(chunks[0][0] == b"IHDR" and (depth, color) == (8, 2)
+          and len(raw) == h * (1 + 3 * w), "an RGB8 PNG that decodes")
+    return w, h
+
+
+def run_cli(argv: list, env=None) -> tuple:
+    """(returncode, stdout, stderr, seconds) of `python -m
+    sph_tpu_torch.cli argv` from the checkout's root."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "sph_tpu_torch.cli", *argv],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=env)
+    return (res.returncode, res.stdout, res.stderr,
+            time.perf_counter() - t0)
+
+
+def phase_cli() -> None:
+    """The user's entry point, `python -m sph_tpu_torch.cli`, in
+    subprocesses on the card (the default --device cuda): run at
+    dam3d_100k (--method auto, frames rendered), at splash3d_1m with
+    --adaptive-cap, from the settled emitters3d checkpoint, --debug at
+    dam2d_10k; record at dam2d_10k (an APNG through the native encoder);
+    a contradictory flag set (exit 2, one line); and with the card hidden
+    (exit 1, one line).  Any other outcome fails the phase."""
+    import os
+    import tempfile
+
+    from sph_tpu_torch.diagnostics import SCALARS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def go(argv, want_rc=0, env=None):
+            rc, out, err, secs = run_cli(argv, env)
+            emit({"phase": "cli", "argv": argv, "rc": rc, "seconds": secs,
+                  "stdout_tail": out[-400:], "stderr_tail": err[-800:]})
+            check(rc == want_rc, f"cli {' '.join(argv)} exits {want_rc}")
+            return err
+
+        def metrics(out: Path, frames: int, step: int, modes) -> list:
+            recs = [json.loads(ln) for ln in
+                    (out / "metrics.jsonl").read_text().splitlines()]
+            keys = set(SCALARS) | {"frame", "step", "wall_s"}
+            for r in recs:
+                check(keys <= set(r) and all(
+                    isinstance(r[k], (int, float)) and r[k] == r[k]
+                    and abs(r[k]) != float("inf") for k in SCALARS),
+                    f"finite metrics in {out.name}")
+                check(r.get("cap_dropped", 0) == 0
+                      and r.get("row_overflow", 0) == 0,
+                      f"no cap overflow in {out.name}")
+                check(modes is None or r.get("advance_mode") in modes,
+                      f"advance_mode of {out.name}")
+            check(len(recs) == frames and recs[-1]["step"] == step,
+                  f"{frames} frames to step {step} in {out.name}")
+            emit({"phase": "cli", "metrics": out.name, "last": recs[-1]})
+            return recs
+
+        dam = tmp / "dam3d_100k"
+        go(["run", "dam3d_100k", "--frames", "3", "--steps-per-frame", "40",
+            "--render", "--out", str(dam), "--quiet"])
+        metrics(dam, 3, 120, ("resident",))
+        sizes = [decode_png((dam / f"frame_{k:05d}.png").read_bytes())
+                 for k in range(3)]
+        check(sizes == [(400, 300)] * 3, "three 400x300 frames that decode")
+        splash = tmp / "splash3d_1m"
+        go(["run", "splash3d_1m", "--adaptive-cap", "--frames", "2",
+            "--steps-per-frame", "20", "--out", str(splash), "--quiet"])
+        metrics(splash, 2, 40, ("cap8", "cap16"))
+        em = tmp / "emitters3d"
+        go(["run", "emitters3d", "--resume", str(SETTLED), "--frames", "2",
+            "--steps-per-frame", "100", "--out", str(em), "--quiet"])
+        metrics(em, 2, 260200, ("packed", "slot"))
+        dbg = tmp / "dam2d_10k"
+        go(["run", "dam2d_10k", "--debug", "--frames", "1", "--out",
+            str(dbg), "--quiet"])
+        metrics(dbg, 1, 100, None)
+        movie = tmp / "movie.apng"
+        go(["record", "dam2d_10k", "--frames", "10", "--out", str(movie),
+            "--quiet"])
+        chunks = png_chunks(movie.read_bytes())
+        actl = [p for t, p in chunks if t == b"acTL"]
+        check(len(actl) == 1 and struct.unpack(">I", actl[0][:4])[0] == 10
+              and sum(t == b"fcTL" for t, _ in chunks) == 10
+              and not list(tmp.glob("movie_*.png")),
+              "record wrote a 10-frame APNG through the native encoder")
+        err = go(["run", "dam3d_100k", "--method", "pallas",
+                  "--adaptive-cap"], want_rc=2)
+        check(len(err.strip().splitlines()) == 1 and "Traceback" not in err,
+              "a contradictory flag set is one line of usage error")
+        err = go(["run", "dam2d_10k", "--frames", "1", "--out",
+                  str(tmp / "nocard")], want_rc=1,
+                 env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        check(len(err.strip().splitlines()) == 1 and "no CUDA device" in err
+              and not (tmp / "nocard").exists(),
+              "with no card the command stops with one line")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1509,6 +1855,13 @@ def main() -> int:
     at_skin = {p: phase_kernels(p, dev, grid=reuse_grid(sph.preset(p), 4),
                                 lattice="sort_every=4")
                for p in ("dam3d_100k", "splash3d_1m")}
+    # and on the cap-8 lattice of the adaptive policy (its occupancy-fit
+    # skin at step 0)
+    at_cap8, cap8_skins = {}, {}
+    for p in ("dam3d_100k", "splash3d_1m"):
+        scene = sph.preset(p)
+        cap8_skins[p], grid8 = cap8_lattice(scene, sph.init(scene, device=dev))
+        at_cap8[p] = phase_kernels(p, dev, grid=grid8, lattice="cap 8")
 
     runs = {}
     for name in ("dam3d_100k", "splash3d_1m"):
@@ -1663,6 +2016,14 @@ def main() -> int:
     phase_options_agreement(dev)
     probe_res = phase_probe(dev)
 
+    # the user's entry point: the cap-8 policy, the grid method, the CLI
+    for name in ("dam3d_100k", "splash3d_1m"):
+        runs[f"cap8:{name}"] = phase_cap8(name, dev)
+    phase_cap8_switch(dev)
+    phase_grid("dam2d_10k", 200, dev)
+    phase_grid("dam3d_100k", 10, dev)
+    phase_cli()
+
     def resident(name):
         return {"resident4auto": {
             p: runs[f"resident:{p}"]["launches"][name]
@@ -1688,6 +2049,11 @@ def main() -> int:
                 p: {"lattice": "sort_every=4",
                     "launches": runs[f"resident:{p}"]["launches"][name],
                     **at_skin[p][name]}
+                for p in ("dam3d_100k", "splash3d_1m")},
+            "at_cap8": {
+                p: {"lattice": "cap 8", "skin": cap8_skins[p],
+                    "launches": runs[f"cap8:{p}"]["launches"][name],
+                    **at_cap8[p][name]}
                 for p in ("dam3d_100k", "splash3d_1m")},
             **resident(name),
         })

@@ -7,13 +7,16 @@ there.  The package imports neither JAX nor `sph_tpu`.  Entry points take
 `device="cpu"` is passed; on CPU tensors the slot kernels run their plain
 PyTorch versions.
 
-Ported so far: `method="naive"`, and `method="pallas"` on the slot layout
-or on packed rows (`packed_rows=True`), per step, with Verlet-skin address
-reuse (`sort_every > 1`), and slot-resident with auto-rebuild, heal, repair,
-demotion and the packed auto policy — the production default,
+Ported so far: `method="naive"`, `method="grid"`, and `method="pallas"` on
+the slot layout or on packed rows (`packed_rows=True`), per step, with
+Verlet-skin address reuse (`sort_every > 1`), and slot-resident with
+auto-rebuild, heal, repair, demotion, the packed auto policy and the cap-8
+policy (`adaptive_cap=True`) — the production default,
 `run(scene, n, method="pallas", sort_every=4, slot_resident=True)`;
-`scatter_slots(staged=True)`; checkpoints and `spawn`.  See ROADMAP.md for
-what follows.
+`scatter_slots(staged=True)`; checkpoints, diagnostics and `spawn`; the
+renderer and the native frame encoder; the command line, `python -m
+sph_tpu_torch.cli run|record|presets`.  See ROADMAP.md for what follows
+(domain decomposition).
 """
 
 from sph_tpu_torch.diagnostics import load_checkpoint, save_checkpoint

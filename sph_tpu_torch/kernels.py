@@ -46,6 +46,16 @@ def poly6(r2: torch.Tensor, h: float, c_poly6: float) -> torch.Tensor:
     return c_poly6 * q * q * q
 
 
+def spiky_grad_scale(r: torch.Tensor, h: float, c_spiky: float,
+                     eps: float = 1e-12) -> torch.Tensor:
+    """Scalar s(r) such that ∇W_spiky(d) = −s(r) · d for d = x_i − x_j.
+
+    s(r) = C_s (h−r)² / r, zero outside support, guarded at r → 0 (the j = i
+    self-pair and coincident particles contribute no pressure force)."""
+    t = torch.clamp(h - r, min=0.0)
+    return c_spiky * t * t / torch.clamp(r, min=eps) * (r > eps)
+
+
 def pair_scales(r2: torch.Tensor, h: float, c_spiky: float, c_visc: float,
                 eps: float = 1e-24) -> tuple[torch.Tensor, torch.Tensor]:
     """(spiky-gradient scale s(r), viscosity Laplacian) from r² via ONE
@@ -56,3 +66,17 @@ def pair_scales(r2: torch.Tensor, h: float, c_spiky: float, c_visc: float,
     t = torch.clamp(h - r2 * inv_r, min=0.0)
     s = c_spiky * t * t * inv_r * (r2 > eps)
     return s, c_visc * t
+
+
+def visc_lap(r: torch.Tensor, h: float, c_visc: float) -> torch.Tensor:
+    """Viscosity Laplacian ∇²W_visc(r, h). Zero outside support."""
+    return c_visc * torch.clamp(h - r, min=0.0)
+
+
+def spiky_w(r: torch.Tensor, h: float, dim: int, norm: str) -> torch.Tensor:
+    """W_spiky itself, whose radial derivative `spiky_grad_scale` gives;
+    the paths use only its gradient."""
+    use3d = dim == 3 or norm == "legacy3d"
+    c = 15.0 / (math.pi * h**6) if use3d else 10.0 / (math.pi * h**5)
+    t = torch.clamp(h - r, min=0.0)
+    return c * t * t * t

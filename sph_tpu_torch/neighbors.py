@@ -1,20 +1,35 @@
-"""Cell-grid geometry and per-particle cell indices (port of the parts of
-`sph_tpu/neighbors.py` that the slot path needs).
+"""Cell-grid geometry, per-particle cell indices, and the grid method
+(port of `sph_tpu/neighbors.py` without its decomposition specs).
 
 The cell size is h (+ a Verlet skin under address reuse), so every pair
-with r < h lies within ±1 cell on each axis.  The XLA grid method itself
-(`build_tiles`, `grid_rho_p_f`) is not ported yet (ROADMAP.md Queue 1
-item 6).
+with r < h lies within ±1 cell on each axis.
+
+The grid method (`method="grid"`) is plain PyTorch, as the reference's is
+XLA with no Pallas kernel:
+
+  1. cell id per particle (`cell_index`); inactives go to the dump row;
+  2. a stable sort by cell id fills fixed-size per-cell tiles
+     (`build_tiles`), each listing its particles in ascending index order,
+     padded with the sentinel index N (a dummy particle far away);
+  3. each particle gathers the tiles of its 3^D adjacent cells
+     (`_neighbor_rows`) and sums over those candidates, in particle chunks
+     whose candidate gathers fit `GATHER_BUDGET` bytes.
+
+A particle past a cell's cap falls out of its tile (`cell_overflow`
+reports by how much), as in the reference.  The decomposition specs
+(`for_slab`, `for_pencil`) come with ROADMAP.md Queue 1 item 14.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 
 import torch
 
-from sph_tpu_torch.params import Scene
+from sph_tpu_torch import physics
+from sph_tpu_torch.params import Scene, SimParams
 from sph_tpu_torch.platform import device_const
 
 
@@ -42,10 +57,21 @@ class GridSpec:
         return math.prod(self.shape)
 
     @property
+    def n_rows(self) -> int:
+        # + always-empty row (invalid-neighbor target) + inactive dump row
+        return self.n_cells + 2
+
+    @property
+    def empty_row(self) -> int:
+        return self.n_cells
+
+    @property
     def dump_row(self) -> int:
-        # the reference keeps an always-empty row at n_cells; inactives go
-        # to the row after it
         return self.n_cells + 1
+
+    @property
+    def n_offsets(self) -> int:
+        return 3**self.dim
 
     @staticmethod
     def for_scene(scene: Scene, cap: int | None = None, skin: float = 0.0,
@@ -97,3 +123,163 @@ def cell_index(x: torch.Tensor, active: torch.Tensor, grid: GridSpec):
         flat = flat * grid.shape[a] + ci[:, a]
     flat = torch.where(active, flat, grid.dump_row)
     return ci, flat.to(torch.int32)
+
+
+def build_tiles(flat: torch.Tensor, grid: GridSpec):
+    """Counting sort by cell → (tile [n_rows, cap] i32, order, starts,
+    counts).
+
+    tile[c] lists the particle indices in cell c in ascending original-index
+    order (stable sort), padded with the sentinel N; a rank past the cap is
+    dropped (static-cap overflow)."""
+    n = flat.shape[0]
+    dev = flat.device
+    flat = flat.long()
+    order = torch.argsort(flat, stable=True)
+    sorted_flat = flat[order]
+    counts = torch.bincount(flat, minlength=grid.n_rows)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - starts[sorted_flat]
+    tile = torch.full((grid.n_rows * grid.cap + 1,), n, dtype=torch.int32,
+                      device=dev)
+    # dropped ranks write into one spare element past the end
+    dest = torch.where(rank < grid.cap, sorted_flat * grid.cap + rank,
+                       grid.n_rows * grid.cap)
+    tile[dest] = order.to(torch.int32)
+    tile = tile[:-1].reshape(grid.n_rows, grid.cap)
+    return tile, order, starts, counts
+
+
+def cell_overflow(x, active, grid: GridSpec) -> torch.Tensor:
+    """Max particles in any real cell minus cap (>0 ⇒ tile overflow)."""
+    _, flat = cell_index(x, active, grid)
+    counts = torch.bincount(flat.long(), minlength=grid.n_rows)
+    return torch.max(counts[: grid.n_cells]) - grid.cap
+
+
+def _neighbor_rows(ci: torch.Tensor, grid: GridSpec) -> torch.Tensor:
+    """For each particle's cell multi-index [C, D], the 3^D adjacent flat
+    row ids [C, 3^D] (offsets in the reference's order); out-of-grid
+    neighbors point at the always-empty row."""
+    shape = device_const(grid.shape, torch.int32, ci.device)
+    rows = []
+    for off in itertools.product((-1, 0, 1), repeat=grid.dim):
+        idx = ci + device_const(off, torch.int32, ci.device)[None, :]
+        valid = torch.all((idx >= 0) & (idx < shape[None, :]), dim=-1)
+        idxc = torch.minimum(torch.clamp(idx, min=0), shape[None, :] - 1)
+        flat = idxc[:, 0]
+        for a in range(1, grid.dim):
+            flat = flat * grid.shape[a] + idxc[:, a]
+        rows.append(torch.where(valid, flat, grid.empty_row))
+    return torch.stack(rows, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Density + EOS + forces over the grid
+# ---------------------------------------------------------------------------
+
+#: Bytes the candidate gathers of one particle chunk may take: the force
+#: pass gathers [chunk, 3^D·cap, 2D + 2] floats.  The chunks change no
+#: neighbor set and no order of a sum, only how many particles go at once.
+GATHER_BUDGET = 1 << 30
+
+
+def _spans(n: int, grid: GridSpec, d: int) -> list[tuple[int, int]]:
+    """Particle ranges [a, b) whose force gathers fit GATHER_BUDGET."""
+    per = grid.n_offsets * grid.cap * (2 * d + 2) * 4
+    step = max(1, GATHER_BUDGET // per)
+    return [(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+def _candidates(ci, tile, grid: GridSpec) -> torch.Tensor:
+    """[C, 3^D·cap] candidate particle indices (N = none) of cells `ci`."""
+    rows = _neighbor_rows(ci, grid)
+    return tile[rows.long()].reshape(ci.shape[0], -1).long()
+
+
+def _density_block(xc, idx, x_pad, n, params: SimParams):
+    xj = x_pad[idx]                                   # [C, K, D]
+    dx = xc[:, None, :] - xj
+    r2 = torch.sum(dx * dx, dim=-1)
+    mask = (idx < n).to(xc.dtype)
+    return torch.sum(physics.density_contrib(r2, mask, params), dim=-1)
+
+
+def _force_block(xc, vc, pc, idx, feat_pad, n, d, params: SimParams):
+    """One gather of packed [x | v | rho | p] rows per candidate."""
+    fj = feat_pad[idx]                                # [C, K, 2D+2]
+    dx = xc[:, None, :] - fj[..., :d]
+    r2 = torch.sum(dx * dx, dim=-1)
+    mask = (idx < n).to(xc.dtype)
+    return torch.sum(
+        physics.force_contrib(
+            dx, r2, vc[:, None, :], fj[..., d : 2 * d], pc[:, None],
+            fj[..., 2 * d + 1], fj[..., 2 * d], mask, params,
+        ),
+        dim=-2,
+    )
+
+
+def _x_pad(x):
+    """x with the far dummy particle at index N (W = 0 against anything)."""
+    far = torch.full((1, x.shape[1]), 1e18, dtype=x.dtype, device=x.device)
+    return torch.cat([x, far], dim=0)
+
+
+def _feat_pad(x, v, rho, p):
+    """[N+1, 2D+2] packed rows x | v | rho | p (dummy: far, 0, 1, 0)."""
+    d = x.shape[1]
+    feat = torch.cat([x, v, rho[:, None], p[:, None]], dim=1)
+    dummy = torch.zeros((1, 2 * d + 2), dtype=x.dtype, device=x.device)
+    dummy[0, :d] = 1e18
+    dummy[0, 2 * d] = 1.0
+    return torch.cat([feat, dummy], dim=0)
+
+
+def _tiles(x, active, grid: GridSpec):
+    ci, flat = cell_index(x, active, grid)
+    return ci, build_tiles(flat, grid)[0]
+
+
+def _density_pass(x, active, params, grid, ci, tile):
+    n, d = x.shape
+    x_pad = _x_pad(x)
+    rho = torch.cat([
+        _density_block(x[a:b], _candidates(ci[a:b], tile, grid), x_pad, n,
+                       params)
+        for a, b in _spans(n, grid, d)
+    ])
+    return torch.where(active, rho, params.rest_density)
+
+
+def _force_pass(x, v, rho, p, active, params, grid, ci, tile):
+    n, d = x.shape
+    feat_pad = _feat_pad(x, v, rho, p)
+    f = torch.cat([
+        _force_block(x[a:b], v[a:b], p[a:b], _candidates(ci[a:b], tile, grid),
+                     feat_pad, n, d, params)
+        for a, b in _spans(n, grid, d)
+    ])
+    return f * active[:, None].to(x.dtype)
+
+
+def grid_density(x, active, params: SimParams, grid: GridSpec):
+    """Density only (the reference's split phase)."""
+    return _density_pass(x, active, params, grid, *_tiles(x, active, grid))
+
+
+def grid_forces(x, v, rho, p, active, params: SimParams, grid: GridSpec):
+    """Pairwise forces given rho/p (the reference's split phase)."""
+    return _force_pass(x, v, rho, p, active, params, grid,
+                       *_tiles(x, active, grid))
+
+
+def grid_rho_p_f(x, v, active, params: SimParams, grid: GridSpec):
+    """Density → EOS → pairwise forces over the cell tiles, which are built
+    once for both passes; matches the naive path up to fp reduction order
+    (tests/test_torch_grid.py)."""
+    ci, tile = _tiles(x, active, grid)
+    rho = _density_pass(x, active, params, grid, ci, tile)
+    p = physics.eos_pressure(rho, params)
+    f = _force_pass(x, v, rho, p, active, params, grid, ci, tile)
+    return rho, p, f

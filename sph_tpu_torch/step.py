@@ -6,18 +6,19 @@ integrate → boundaries.  PyTorch runs eagerly, so `make_advance` is a
 Python loop over steps where the reference scans on the device; on the
 card a step enqueues its work without a host sync.
 
-Ported: `method="naive"`, and `method="pallas"` on the slot layout or on
-packed rows, per step, with Verlet-skin address reuse (`sort_every > 1`,
-audited, with an exact re-run), and slot-resident (`slot_resident=True`):
-the classic resident block with or without heal, and the auto-rebuild
-resident advance with its membership-relaxed rebuild predicate, heal,
-minority slot repair and the packed_scatter transport, under
-`make_audited_advance`'s policies (constant-heal demotion, the packed-row
-auto policy); each with the kernel options `precision="bf16"`, `xsub` and
+Ported: `method="naive"`, `method="grid"` (cell tiles in plain PyTorch),
+and `method="pallas"` on the slot layout or on packed rows, per step, with
+Verlet-skin address reuse (`sort_every > 1`, audited, with an exact
+re-run), and slot-resident (`slot_resident=True`): the classic resident
+block with or without heal, and the auto-rebuild resident advance with its
+membership-relaxed rebuild predicate, heal, minority slot repair and the
+packed_scatter transport, under `make_audited_advance`'s policies
+(constant-heal demotion, the packed-row auto policy, the cap-8 adaptive
+policy); each with the kernel options `precision="bf16"`, `xsub` and
 `row_pair`.  The reference branches inside its scan with `lax.cond`; here
 each such decision is one fetch to the host at a block boundary (`FETCHES`
-counts them).  The options of the reference that reach beyond that raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+counts them).  Domain decomposition (`shards`) raises NotImplementedError
+naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -42,15 +43,11 @@ def _not_ported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported yet " + _ROADMAP.format(item))
 
 
-def _check_slice(method: str, *, adaptive_cap: bool = False,
-                 shards=None) -> None:
-    """Raise for every option the port does not have yet."""
-    if method == "grid":
-        raise _not_ported("method='grid'", 6)
-    if method not in ("naive", "pallas"):
+def _check_slice(method: str, *, shards=None) -> None:
+    """Raise for an unknown method and for the options the port does not
+    have yet."""
+    if method not in ("naive", "grid", "pallas"):
         raise ValueError(f"unknown neighbor method {method!r}")
-    if adaptive_cap:
-        raise _not_ported("adaptive_cap (the cap-8 policy)", 16)
     if shards:
         raise _not_ported("shards (domain decomposition)", 14)
 
@@ -106,6 +103,8 @@ def _rho_p_f(x, v, active, scene: Scene, method: str, grid=None, step=None,
         rho = physics.density_naive(x, active, params)
         p = physics.eos_pressure(rho, params)
         f = physics.forces_naive(x, v, rho, p, active, params)
+    elif method == "grid":
+        rho, p, f = neighbors.grid_rho_p_f(x, v, active, params, grid)
     else:
         # batch_skip of the reference changes scheduling only, never
         # per-particle results; the CUDA kernels skip empty slots anyway
@@ -122,7 +121,7 @@ def _rho_p_f(x, v, active, scene: Scene, method: str, grid=None, step=None,
 
 
 def _grid_for(scene: Scene, method: str, grid):
-    if grid is None and method == "pallas":
+    if grid is None and method in ("grid", "pallas"):
         grid = neighbors.GridSpec.for_scene(scene)
     return grid
 
@@ -141,8 +140,9 @@ def make_step(
 ) -> Callable[..., State]:
     """Build the step function for `scene` on `device` (None = the card).
 
-    method: "naive" (O(N²)) | "pallas" (slot layout with kernels K1/K2, or
-    packed rows with K3/K4 when `packed_rows`).
+    method: "naive" (O(N²)) | "grid" (cell tiles, plain PyTorch) |
+    "pallas" (slot layout with kernels K1/K2, or packed rows with K3/K4
+    when `packed_rows`).
     `grid` overrides the default GridSpec (cap tuning, skinned cells,
     xsub).  with_addr (pallas only): the returned function is
     `step(state, addr) -> state`, reusing a prebuilt SlotAddr (sort_every).
@@ -1022,8 +1022,8 @@ def _make_resident_auto_advance(
 def make_advance(
     scene: Scene, method: str = "naive", steps_per_dispatch: int = 100,
     grid=None, sort_every: int = 1, skin: float | None = None,
-    slot_resident: bool = False, xsub: int = 1, heal: bool = False,
-    row_pair: bool = False, auto_rebuild: bool = False,
+    slot_resident: bool = False, xsub: int = 1, xb_cells: int = 4,
+    heal: bool = False, row_pair: bool = False, auto_rebuild: bool = False,
     rebuild_frac: float = 1.0, reactive_theta: float | None = None,
     membership_audit: bool = True, repair_k: int = 0,
     packed_scatter: bool = False, packed_rows: bool = False,
@@ -1034,7 +1034,8 @@ def make_advance(
     xsub > 1 (pallas, no `grid` given): the slot layout subdivides each x
     cell into xsub slot-cells (`GridSpec.for_scene(xsub=)`); the audits then
     fall back to the strict drift test, as in the reference.  row_pair: see
-    `make_step`.
+    `make_step`.  xb_cells is the reference's Mosaic window width, taken
+    for signature parity; the CUDA kernels have no such window.
 
     sort_every > 1 (pallas): Verlet-skin addr reuse — the returned advance
     is `advance(state) -> (state, skin_violation_count)`, the count a 0-d
@@ -1250,6 +1251,20 @@ def default_repair_k(
     return DEFAULT_REPAIR_K if ok else 0
 
 
+def cap8_skin(scene: Scene, state: State, sort_every: int = 4):
+    """The skin of the cap-8 policy's lattice for `state`: the widest of
+    default_skin / {1, 2, 4} whose cap-8 cells all hold at most 8 of its
+    active particles, or None when none does.  One fetch a candidate."""
+    full = default_skin(scene, sort_every)
+    for k in (1, 2, 4):
+        g = neighbors.GridSpec.for_scene(scene, cap=8, skin=full / k)
+        _, flat = neighbors.cell_index(state.x, state.active, g)
+        counts = torch.bincount(flat.long(), minlength=g.n_rows)
+        if _fetch(torch.sum(counts[: g.n_cells] > 8))[0] == 0:
+            return full / k
+    return None
+
+
 def make_audited_advance(
     scene: Scene, method: str, steps_per_dispatch: int,
     sort_every: int = 1, slot_resident: bool = False, xsub: int = 1,
@@ -1280,17 +1295,29 @@ def make_audited_advance(
     state and runs packed rows or the slot layout; it switches packed →
     slot for good once more than blocks/8 blocks of a dispatch heal.
 
+    adaptive_cap (slot_resident, no `grid`, a default cap above 8) is the
+    CAP-8 POLICY: the first dispatch probes the current state for the
+    widest of the skins default_skin / {1, 2, 4} whose cap-8 lattice holds
+    every cell (none: the default cap from the start), runs the resident
+    advance on that cap-8 slot grid, heals its rare overflow blocks
+    exactly, and switches to the default cap for good once more than
+    blocks/8 blocks of a dispatch heal.  The packed auto policy stays off
+    under it, as in the reference.
+
     The returned function carries `.healed`, `.repaired`, `.rebuilds`
     (cumulative blocks) and `.mode` ("resident", "perstep", "probe",
-    "packed", "slot"), as the reference's does (`.rebuilds` is the port's
-    own).  Its counters are host integers — the port takes the per-block
-    decisions on the host — so reading them fetches nothing."""
-    _check_slice(method, adaptive_cap=adaptive_cap)
+    "packed", "slot", "cap8", "cap16"), as the reference's does
+    (`.rebuilds` is the port's own, as is the cap-8 policy's `.skin`, the
+    skin of its cap-8 lattice once probed).  Its counters are host
+    integers — the port takes the per-block decisions on the host — so
+    reading them fetches nothing."""
+    _check_slice(method)
     auto = auto_rebuild and slot_resident and sort_every > 1
     packed_auto = (
         packed_rows is None and auto and bool(scene.emitters)
-        and method == "pallas" and grid is None and xsub == 1
-        and not row_pair and scene.params.precision != "bf16"
+        and method == "pallas" and grid is None and not adaptive_cap
+        and xsub == 1 and not row_pair
+        and scene.params.precision != "bf16"
         and reactive_theta is None
     )
     if packed_rows is None:
@@ -1323,6 +1350,64 @@ def make_audited_advance(
 
     def _at(st: State) -> int:
         return _fetch(st.step)[0]
+
+    base_grid = neighbors.GridSpec.for_scene(scene) if adaptive_cap else None
+    if adaptive_cap and slot_resident and grid is None and base_grid.cap > 8:
+        # kernel cost is quantized by the slot cap, so the skin shrinks
+        # until the CURRENT occupancy fits 8 (the price is rebuild rate,
+        # which the auto-rebuild advance adapts to)
+        skin_full = default_skin(scene, sort_every)
+        blocks = max(steps_per_dispatch // sort_every, 1)
+        wide = f"cap{base_grid.cap}"
+        adv8: list = []
+        adv16: list = []
+
+        def _probe(st: State) -> None:
+            pick = cap8_skin(scene, st, sort_every)
+            if pick is None:
+                audited.mode = wide
+                _note(f"occupancy exceeds 8 on every cap-8 candidate "
+                      f"lattice at step {_at(st)} — running the "
+                      f"cap-{base_grid.cap} fast path")
+                return
+            if pick != skin_full:
+                _note(f"cap-8 lattice skin narrowed {skin_full:.3g} → "
+                      f"{pick:.3g} (occupancy-fit; rebuild rate adapts)")
+            audited.skin = pick
+            adv8.append(make_advance(
+                scene, method, steps_per_dispatch, xb_cells=8,
+                grid=neighbors.GridSpec.for_scene(scene, cap=8, skin=pick),
+                **base_kw))
+
+        def audited(st: State) -> State:
+            if audited.mode == "cap8" and not adv8:
+                _probe(st)
+            if audited.mode == "cap8":
+                st2, healed = _unpack(adv8[0](st))
+                audited.healed += healed
+                if healed > max(1, blocks // 8):
+                    audited.mode = wide
+                    _note(f"cap-8 occupancy outgrown at step {_at(st)} "
+                          f"({healed}/{blocks} blocks healed) — switching "
+                          f"to the cap-{base_grid.cap} fast path")
+                elif healed:
+                    _note(f"skin/cap violations at step {_at(st)} — "
+                          f"{healed} block(s) re-ran exactly (in-dispatch)")
+                return st2
+            if not adv16:
+                adv16.append(make_advance(
+                    scene, method, steps_per_dispatch, **base_kw))
+            st2, healed = _unpack(adv16[0](st))
+            audited.healed += healed
+            if healed:
+                _note(f"skin/cap violations at step {_at(st)} — {healed} "
+                      f"block(s) re-ran exactly (in-dispatch)")
+            return st2
+
+        audited.healed = audited.repaired = audited.rebuilds = 0
+        audited.mode = "cap8"
+        audited.skin = None
+        return audited
 
     if packed_auto:
         # probe the CURRENT state on the first dispatch, run packed while
@@ -1478,7 +1563,7 @@ def run(
     layout options of `make_audited_advance` (the reference reaches them
     through `make_advance`; `run` passes them on, and the prime and the
     exact re-runs keep the default layout, as there)."""
-    _check_slice(method, adaptive_cap=adaptive_cap, shards=shards)
+    _check_slice(method, shards=shards)
     dev = resolve_device(device)
     if state is None:
         state = init(scene, device=dev)

@@ -14,9 +14,11 @@ import torch
 import oracle_numpy as oracle
 from helpers import pdict, random_cloud
 
+from sph_tpu import kernels as jkern
 from sph_tpu import physics as jphys
 from sph_tpu.params import ForceField as JForceField
 from sph_tpu.params import SimParams as JSimParams
+from sph_tpu_torch import kernels as tkern
 from sph_tpu_torch import physics as tphys
 from sph_tpu_torch.params import ForceField, SimParams
 
@@ -119,3 +121,23 @@ def test_gravity_and_force_fields_vs_reference(step):
     assert np.allclose(f, f_j, rtol=1e-5, atol=1e-2)
     g = tphys.gravity_force(_t(rho), pt).numpy()
     assert np.array_equal(g, np.asarray(jphys.gravity_force(jnp.asarray(rho), pj)))
+
+
+@pytest.mark.parametrize("dim,norm", [(2, "proper"), (3, "proper"),
+                                      (2, "legacy3d")])
+def test_kernel_forms_vs_reference(dim, norm):
+    """spiky_grad_scale, visc_lap and spiky_w (the forms
+    tests/test_kernels.py checks the normalizations with) on r across and
+    beyond the support, the self-pair r = 0 included."""
+    h = 1.3
+    _, cs, cv = tkern.kernel_constants(dim, h, norm)
+    r = np.concatenate([[0.0, 1e-13], np.linspace(0.0, 3 * h, 301)]
+                       ).astype(np.float32)
+    pairs = [
+        (tkern.spiky_grad_scale(_t(r), h, cs), jkern.spiky_grad_scale(r, h, cs)),
+        (tkern.visc_lap(_t(r), h, cv), jkern.visc_lap(r, h, cv)),
+        (tkern.spiky_w(_t(r), h, dim, norm), jkern.spiky_w(r, h, dim, norm)),
+    ]
+    for ours, ref in pairs:
+        assert np.allclose(ours.numpy(), np.asarray(ref), rtol=1e-6, atol=0)
+    assert float(pairs[0][0][0]) == 0.0 and float(pairs[0][0][-1]) == 0.0

@@ -276,7 +276,11 @@ def test_resident_gates():
     with pytest.raises(ValueError, match="minority slot repair"):
         port.make_advance(scene, "pallas", sort_every=4, **AUTO_KW,
                           packed_rows=True, repair_k=8, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        port.make_audited_advance(scene, "pallas", 8, sort_every=4,
-                                  slot_resident=True, adaptive_cap=True, **CPU)
+    # the cap-8 policy (Queue 1 item 16) is ported: it builds and runs
+    adv = port.make_audited_advance(scene, "pallas", 8, sort_every=4,
+                                    slot_resident=True, adaptive_cap=True,
+                                    **CPU)
+    assert adv.mode == "cap8"
+    out = adv(port.init(scene, **CPU))
+    assert int(out.step) == 8 and adv.mode == "cap8" and adv.skin is not None
 

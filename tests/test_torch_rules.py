@@ -1,8 +1,9 @@
 """Rules of the port: `sph_tpu_torch` imports neither JAX nor `sph_tpu`,
-entry points never fall back to the CPU on their own, CPU tensors never
-count as kernel launches (K1-K5, P1), non-CPU tensors never take the plain
-version, options the port does not have yet raise NotImplementedError
-naming their ROADMAP.md item, and the options it has run."""
+entry points (the CLI's too) never fall back to the CPU on their own, CPU
+tensors never count as kernel launches (K1-K5, P1), non-CPU tensors never
+take the plain version, options the port does not have yet raise
+NotImplementedError naming their ROADMAP.md item, and the options it has
+run."""
 
 import subprocess
 import sys
@@ -35,7 +36,9 @@ def test_import_pulls_in_neither_jax_nor_sph_tpu():
         "sph_tpu_torch.pallas_step, sph_tpu_torch.slot_kernels, "
         "sph_tpu_torch.packed_kernels, sph_tpu_torch.stage_kernels, "
         "sph_tpu_torch.diagnostics, sph_tpu_torch._build, "
-        "sph_tpu_torch.probe_vpu_bf16\n"
+        "sph_tpu_torch.probe_vpu_bf16, sph_tpu_torch.cli, "
+        "sph_tpu_torch.render, sph_tpu_torch.io_native, "
+        "sph_tpu_torch.neighbors\n"
         "import pkgutil\n"
         "for m in pkgutil.iter_modules(sph_tpu_torch.__path__):\n"
         "    __import__('sph_tpu_torch.' + m.name)\n"
@@ -51,13 +54,29 @@ def test_import_pulls_in_neither_jax_nor_sph_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("entry", ["init", "make_step", "make_advance",
-                                   "prime", "run"])
+def _cli_without_a_card():
+    """The CLI exits 1 with resolve_device's one line; the test raises
+    that line as `run` would."""
+    import contextlib
+    import io
+
+    from sph_tpu_torch import cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["run", "tutorial2d", "--frames", "1", "--quiet"])
+    assert rc == 1 and len(err.getvalue().strip().splitlines()) == 1
+    raise RuntimeError(err.getvalue())
+
+
+@pytest.mark.parametrize("entry", ["cli", "init", "make_step",
+                                   "make_advance", "prime", "run"])
 def test_entry_points_raise_without_a_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scene = _scene()
     state = port.init(scene, device="cpu")
     calls = {
+        "cli": lambda: _cli_without_a_card(),
         "init": lambda: port.init(scene),
         "make_step": lambda: port.make_step(scene, "pallas"),
         "make_advance": lambda: port.make_advance(scene, "pallas"),
@@ -163,21 +182,15 @@ def test_wrappers_reject_malformed_slot_arrays():
 
 
 # What stays out around the ported paths: the resident path and its repair
-# across slabs, and the audited cap-8 policy.
+# across slabs (domain decomposition).
 OUT_OF_SLICE = {
     "slot_resident": lambda s: port.run(s, 4, "pallas", sort_every=4,
                                         slot_resident=True, shards=2,
                                         device="cpu"),
-    "adaptive_cap": lambda s: port.run(s, 4, "pallas", adaptive_cap=True,
-                                       device="cpu"),
     "shards": lambda s: port.run(s, 4, "pallas", shards=2, device="cpu"),
     "repair_k": lambda s: port.run(s, 4, "pallas", sort_every=4,
                                    slot_resident=True, repair_k=64, shards=2,
                                    device="cpu"),
-    "audited_resident": lambda s: port.make_audited_advance(
-        s, "pallas", 8, sort_every=4, slot_resident=True, adaptive_cap=True,
-        device="cpu"),
-    "grid": lambda s: port.make_step(s, "grid", device="cpu"),
 }
 
 
@@ -191,10 +204,17 @@ def _bf16(s):
     return s.replace(params=s.params.replace(precision="bf16"))
 
 
-# The kernel options that were out of the slice until ROADMAP.md Queue 1
-# item 15 was ported: each runs on the CPU now (each returns the state it
-# reached, or the slot grid it made).
+# The options that were out of the slice until ROADMAP.md Queue 1 items 15
+# (the kernel options), 16 (the cap-8 policy) and 6 (the grid method) were
+# ported: each runs on the CPU now (each returns the state it reached, or
+# the slot grid it made).
 NOW_IN_SLICE = {
+    "adaptive_cap": lambda s, st: port.run(s, 4, "pallas", adaptive_cap=True,
+                                           state=st, device="cpu"),
+    "audited_resident": lambda s, st: port.make_audited_advance(
+        s, "pallas", 8, sort_every=4, slot_resident=True, adaptive_cap=True,
+        device="cpu")(st),
+    "grid": lambda s, st: port.make_step(s, "grid", device="cpu")(st),
     "resident_packed": lambda s, st: port.make_advance(
         s, "pallas", steps_per_dispatch=4, sort_every=4, slot_resident=True,
         auto_rebuild=True, packed_scatter=True, device="cpu")(st)[0],

@@ -37,10 +37,11 @@ def _assert_locked(ref_state, ours, what):
     "dim,kw,method,dispatches,spd",
     [
         (2, {}, "naive", 3, 25),
+        (2, {}, "grid", 3, 25),
         (2, {}, "pallas", 3, 25),
         (3, WCSPH_3D, "pallas", 2, 10),
     ],
-    ids=["2d-naive", "2d-pallas", "3d-wcsph-pallas"],
+    ids=["2d-naive", "2d-grid", "2d-pallas", "3d-wcsph-pallas"],
 )
 def test_trajectory_matches_reference(dim, kw, method, dispatches, spd):
     ref_scene = small_scene(dim=dim, seed=37, **kw)
