@@ -138,10 +138,40 @@ Phases, each printed as one JSON line:
               checkpoint, run dam2d_10k --debug, record dam2d_10k (a
               10-frame APNG from the native encoder), a contradictory flag
               set (exit 2, one line) and the card hidden (exit 1, one line)
+ 31. decomp_dp  the particle-DP step (`decomp.make_dp_step`) in a one-rank
+              NCCL world at dam2d_10k, 10 steps: bitwise the naive step
+              (x, v, acc, rho, p); ms/step of both
+ 32. decomp_slab  run(scene, n, method="pallas", shards=1) in the same
+              world at dam3d_100k (200 steps) and splash3d_1m (20), one
+              dispatch: K1/K2 through the split API on the slab-local
+              lattice, launched n + 1 times (prime included), one spec
+              (no overflow, no re-spec), health, and against the
+              single-device per-step run slot by slot: the active count
+              exactly, x within 1e-4 of the position scale; host ms/step
+              of both in turns, device ms/step of both (profile), the
+              split build, scatter_rp and a ghost compaction timed, and
+              the host time of the spec, the shard and the gather
+ 33. kernels  K1 and K2 on rank 1's slab-local lattice of a 4-slab
+              dam3d_100k (ci_offset != 0) with both neighbors' ghosts, K2
+              on rp from scatter_rp with the ghosts' rho/p as their owners
+              compute them: bitwise their yardsticks, phase 3's tolerances
+              against the plain versions, the locals' rho against the
+              single-device K1, K1's own EOS p against PyTorch's; times,
+              bound
+ 34. decomp_ranks  four processes on the one card (gloo, cuda:0; this
+              script with --decomp-rank) run run(preset("dam3d_100k"), 100,
+              method="pallas", shards=4, steps_per_dispatch=50) with a
+              frame_callback: frames at [50, 100] on every rank, K1/K2
+              launched 101 times a rank, ranks 1-3 on shifted lattices,
+              one spec; the gathered state's health and, against the
+              single-device per-step run, the active count exactly and x
+              within 1e-4 of scale by nearest neighbor
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
-Every path reads its launch counts through `read_counts`, which checks that
+Phases 31-32 run in a one-rank NCCL process group made through a file
+store in a temporary directory.  Every path reads its launch counts
+through `read_counts`, which checks that
 no yardstick and no variant of a launch choice ran in it.  Any failed check
 raises and the script exits non-zero without the last line.  It imports
 neither JAX nor `sph_tpu`.
@@ -1827,11 +1857,499 @@ def phase_cli() -> None:
               "with no card the command stops with one line")
 
 
+# ---------------------------------------------------------------------------
+# Domain decomposition (decomp.py on torch.distributed)
+# ---------------------------------------------------------------------------
+
+# steps each decomposed path is driven for
+DECOMP_STEPS = {"dam3d_100k": 200, "splash3d_1m": 20}
+RANKS, RANKS_STEPS = 4, 100
+
+
+@contextlib.contextmanager
+def process_group(backend: str, world: int, rank: int, store_dir):
+    """A `world`-rank torch.distributed group through a file store in
+    `store_dir` (no network port), destroyed on exit."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        backend, store=dist.FileStore(str(Path(store_dir) / "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def spec_builds():
+    """The SpatialSpec.for_state calls `run(shards=)` makes while the
+    block runs: one a dispatch plan, one more per elastic re-spec."""
+    from sph_tpu_torch import decomp
+
+    made = []
+    real = decomp.SpatialSpec.for_state
+
+    def spy(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    decomp.SpatialSpec.for_state = staticmethod(spy)
+    try:
+        yield made
+    finally:
+        decomp.SpatialSpec.for_state = staticmethod(real)
+
+
+def agreement(a, b, n_start: int, same_order: bool) -> dict:
+    """A decomposed run `a` against the single-device run `b`: exact
+    conservation of the active count, and max |dx| over the position scale
+    of b.  `same_order`: a's active slots are b's in the same order (one
+    rank: no particle migrates), compared slot by slot; else by nearest
+    neighbor, both ways (the symmetric Hausdorff distance of the two
+    sets, exact differences in chunks), since slot order follows slab
+    ownership and a sort by position is not stable under rounding."""
+    xa, xb = a.x[a.active], b.x[b.active]
+    n = [int(xa.shape[0]), int(xb.shape[0]), n_start]
+    out = {"particles": n, "limit": 1e-4, "matched": "slot" if same_order
+           else "nearest"}
+    if len(set(n)) != 1:
+        return {**out, "max_dx_over_scale": float("inf"), "bitwise": False}
+    scale = float(xb.abs().max()) + 1e-6
+    if same_order:
+        dx = float((xa - xb).abs().max())
+        bit = bool(torch.equal(xa, xb))
+    else:
+        dx = 0.0
+        for p, q in ((xa, xb), (xb, xa)):
+            for c in range(0, p.shape[0], 2048):
+                d = torch.cdist(p[c:c + 2048], q,
+                                compute_mode="donot_use_mm_for_euclid_dist")
+                dx = max(dx, float(d.min(dim=1).values.max()))
+        bit = dx == 0.0
+    return {**out, "max_dx_over_scale": dx / scale, "bitwise": bit}
+
+
+def check_agreement(name: str, agree: dict) -> None:
+    check(len(set(agree["particles"])) == 1,
+          f"exact conservation of the active count at {name}")
+    check(agree["max_dx_over_scale"] < agree["limit"],
+          f"decomposed vs single-device x within 1e-4 of scale at {name}")
+
+
+def profiled(fn, n_steps: int) -> dict:
+    """Device time per step of fn() (one call = n_steps steps) under
+    torch.profiler, after one warm call: busy ms, share, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.device_time_total / 1e3 / n_steps, e.count / n_steps,
+                    e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"device_ms_per_step": busy,
+            "wall_ms_per_step_profiled": wall / n_steps * 1e3,
+            "device_busy_share": busy / (wall / n_steps * 1e3),
+            "device_ops_per_step": sum(r[1] for r in rows),
+            "top": [{"ms_per_step": ms, "per_step": c, "name": k[:90]}
+                    for ms, c, k in rows[:10]]}
+
+
+def phase_decomp_dp(dev) -> None:
+    """The particle-DP step (world 1 over NCCL) at dam2d_10k for 10 steps,
+    bitwise the port's naive step on the card; times of both."""
+    from sph_tpu_torch import decomp, init, make_step, preset
+
+    scene = preset("dam2d_10k")
+    s0 = init(scene, device=dev)
+    dp, naive = decomp.make_dp_step(scene), make_step(scene, "naive",
+                                                      device=dev)
+    loc, ref = decomp.shard_state(s0, dev), s0
+    dp(loc), naive(ref)     # warm: the communicator, the cached constants
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        loc = dp(loc)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(10):
+        ref = naive(ref)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = decomp.spatial_gather_state(loc)
+    cap = ref.capacity
+    same = {k: bool(torch.equal(getattr(out, k)[:cap], getattr(ref, k)))
+            for k in ("x", "v", "acc", "rho", "p")}
+    hl = health(out, scene)
+    emit({"phase": "decomp_dp", "preset": "dam2d_10k", "world": 1,
+          "backend": "nccl", "steps": 10, "capacity": cap,
+          "bitwise_naive": same, **hl,
+          "ms_per_step": (t1 - t0) / 10 * 1e3,
+          "naive_ms_per_step": (t2 - t1) / 10 * 1e3,
+          "ms_per_step_note": "host clock, ended by a synchronize"})
+    check(all(same.values()), "the DP step is bitwise the naive step")
+    check(hl["finite"], "finite DP state")
+
+
+def phase_decomp_slab(name: str, dev) -> dict:
+    """run(..., method="pallas", shards=1) over a one-rank NCCL world at
+    full width: one dispatch, so one spec (no overflow, no re-spec); K1
+    and K2 through the split API on the slab-local lattice; against the
+    single-device per-step run: conservation, x within 1e-4 of scale;
+    host ms/step of both in turns, device ms/step of both (profile), and
+    what the split build, scatter_rp and a ghost compaction cost."""
+    from sph_tpu_torch import decomp, init, make_advance, neighbors
+    from sph_tpu_torch import pallas_step as ps, preset, prime, run
+
+    scene, n_steps = preset(name), DECOMP_STEPS[name]
+    s0 = init(scene, device=dev)
+    n_start = int(s0.n_active())
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with spec_builds() as specs:
+        a = run(scene, n_steps, method="pallas", steps_per_dispatch=n_steps,
+                shards=1, state=s0, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(f"decomp_slab {name}")
+    b = run(scene, n_steps, method="pallas", state=s0, device=dev)
+    agree = agreement(a, b, n_start, same_order=True)
+    turns = {"single": [], "decomposed": []}
+    for kind in ("single", "decomposed", "decomposed", "single"):
+        shards = 1 if kind == "decomposed" else None
+        turns[kind].append(timed_run(scene, s0, n_steps, dev, shards=shards))
+    hl = health(a, scene)
+
+    # device time per step: the decomposed step and the single-device one;
+    # and the host time of run(shards=)'s set-up around the dispatches
+    n_prof = 10 if name == "dam3d_100k" else 5
+    sp = prime(scene, s0, "pallas", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec = decomp.SpatialSpec.for_state(scene, sp, 1)
+    t1 = time.perf_counter()
+    loc = decomp.spatial_shard_state(sp, scene, spec, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    decomp.spatial_gather_state(loc)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    setup = {"for_state_ms": (t1 - t0) * 1e3, "shard_ms": (t2 - t1) * 1e3,
+             "gather_ms": (t3 - t2) * 1e3}
+    adv = decomp.make_spatial_advance(scene, spec, "pallas", n_prof)
+    single = make_advance(scene, "pallas", steps_per_dispatch=n_prof,
+                          device=dev)
+    prof = {"decomposed": profiled(lambda: adv(loc), n_prof),
+            "single": profiled(lambda: single(sp), n_prof)}
+    # the pieces the slab step adds around K1/K2
+    grid = neighbors.GridSpec.for_slab(scene, spec.slab_w, 0)
+    ci = decomp._slab_geometry(scene, spec, grid, 0)[2]
+    ghosts = torch.full((2 * spec.cap_ghost, scene.params.dim), 1e18,
+                        device=dev)
+    cx = torch.cat([sp.x, ghosts])
+    cv = torch.cat([sp.v, torch.zeros_like(ghosts)])
+    c_act = torch.cat([sp.active, torch.zeros(2 * spec.cap_ghost,
+                                              dtype=torch.bool, device=dev)])
+    ctx = ps.pallas_split_build(cx, cv, c_act, scene.params, grid, ci)
+    rho_cc = torch.ones(cx.shape[0], device=dev)
+    full = neighbors.GridSpec.for_scene(scene)
+    sg = ps.slot_grid(full)
+    pieces = {
+        "split_build_ms": cuda_ms(lambda: ps.pallas_split_build(
+            cx, cv, c_act, scene.params, grid, ci)),
+        "single_build_and_scatter_ms": cuda_ms(lambda: ps.scatter_slots(
+            ps.build_addr(sp.x, sp.active, full, sg),
+            ps._pack_rows6(sp.x, sp.v), sg)),
+        "scatter_rp_ms": cuda_ms(lambda: ps.scatter_rp(ctx.addr, rho_cc,
+                                                       rho_cc, ctx.sg)),
+        "ghost_compaction_ms": cuda_ms(lambda: decomp._ghost_buffer(
+            sp.x, sp.v, *decomp._pack_idx(sp.active, spec.cap_ghost)[:2],
+            scene.params.dim)),
+    }
+    out = {"phase": "decomp_slab", "preset": name, "world": 1,
+           "backend": "nccl", "steps": n_steps,
+           "spec": dataclasses.asdict(spec),
+           "ci_offset": list(ci), "slab_grid": list(grid.shape),
+           "full_grid": list(full.shape), "spec_builds": len(specs),
+           **hl, "agreement": agree, "launches": launches,
+           "ms_per_step": wall / n_steps * 1e3,
+           "ms_per_step_turns": turns,
+           "ms_per_step_median": {k: statistics.median(v)
+                                  for k, v in turns.items()},
+           "ms_per_step_note": "host clock over run(), prime included",
+           "profile": prof, "pieces": pieces, "setup": setup}
+    emit(out)
+    check_health(f"decomp_slab {name}", hl, n_start, len(specs) - 1,
+                 (0.90, 1.10))
+    check_agreement(f"decomp_slab {name}", agree)
+    for k in ("slot_density", "slot_force"):
+        check(launches[k] == n_steps + 1,
+              f"{k} launched {launches[k]} times on decomp_slab {name}")
+    return out
+
+
+def decomp_rank_main(rank: int, world: int, tmp: str,
+                     device: str = "cuda:0") -> int:
+    """One of the RANKS processes of phase_decomp_ranks: run(shards=RANKS)
+    on `device` over gloo, with a frame_callback; prints its numbers as one
+    JSON line; rank 0 saves the gathered final state."""
+    import numpy as np
+
+    import sph_tpu_torch as sph
+    from sph_tpu_torch import decomp
+
+    dev = torch.device(device)
+    offsets = []
+    real = decomp._slab_geometry
+
+    def spy(*args):
+        offsets.append(real(*args)[2])
+        return real(*args)
+
+    decomp._slab_geometry = spy
+    with process_group("gloo", world, rank, tmp):
+        scene = sph.preset("dam3d_100k")
+        frames = []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with spec_builds() as specs:
+            out = sph.run(scene, RANKS_STEPS, method="pallas",
+                          steps_per_dispatch=RANKS_STEPS // 2, shards=world,
+                          device=dev,
+                          frame_callback=lambda s: frames.append(int(s.step)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(f"decomp_ranks rank {rank}")
+        if rank == 0:
+            np.savez(Path(tmp) / "ranks.npz", **out.to_numpy())
+    emit({"rank": rank, "frames": frames, "launches": launches,
+          "ci_offsets": sorted(set(map(tuple, offsets))),
+          "spec_builds": len(specs), "cap_local": specs[0].cap_local,
+          "ms_per_step": wall / RANKS_STEPS * 1e3})
+    return 0
+
+
+def phase_decomp_ranks(dev) -> dict:
+    """RANKS processes on the one card (gloo, device cuda:0) run
+    run(preset("dam3d_100k"), RANKS_STEPS, method="pallas",
+    shards=RANKS) with a frame_callback: every rank launches K1/K2 once a
+    step (+1 prime), ranks 1..RANKS-1 on a shifted lattice (ci_offset
+    != 0), one spec (no overflow), frames after each dispatch; the
+    gathered state against the single-device per-step run:
+    conservation and x within 1e-4 of scale."""
+    import tempfile
+
+    import numpy as np
+
+    from sph_tpu_torch import init, preset, run
+    from sph_tpu_torch.state import State
+
+    scene = preset("dam3d_100k")
+    s0 = init(scene, device=dev)
+    n_start = int(s0.n_active())
+    b = run(scene, RANKS_STEPS, method="pallas", state=s0, device=dev)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--decomp-rank",
+             str(r), str(RANKS), tmp], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(RANKS)]
+        res = []
+        try:
+            for proc in procs:
+                o, e = proc.communicate(timeout=600)
+                res.append((proc.returncode, o, e))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        for r, (rc, o, e) in enumerate(res):
+            if rc != 0:
+                sys.stderr.write(e[-4000:])
+            check(rc == 0, f"decomp_ranks rank {r} exits 0")
+        ranks = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in res]
+        a = State.from_numpy(dict(np.load(Path(tmp) / "ranks.npz")),
+                             device=dev)
+    agree = agreement(a, b, n_start, same_order=False)
+    hl = health(a, scene)
+    emit({"phase": "decomp_ranks", "preset": "dam3d_100k", "world": RANKS,
+          "backend": "gloo", "device": "cuda:0", "steps": RANKS_STEPS,
+          "ranks": ranks, **hl, "agreement": agree,
+          "wall_s_all_ranks": wall,
+          "note": "host ms/step of each rank, prime included; four "
+                  "processes share one card and stage every exchange "
+                  "through host memory (gloo)"})
+    for r in ranks:
+        check(r["frames"] == [RANKS_STEPS // 2, RANKS_STEPS],
+              f"frame_callback after each dispatch on rank {r['rank']}")
+        check(r["spec_builds"] == 1, f"no overflow on rank {r['rank']}")
+        for k in ("slot_density", "slot_force"):
+            check(r["launches"][k] == RANKS_STEPS + 1,
+                  f"{k} launched {r['launches'][k]} times on rank "
+                  f"{r['rank']}")
+        if r["rank"] > 0:
+            check(all(ci[0] != 0 for ci in r["ci_offsets"]),
+                  f"a shifted lattice (ci_offset != 0) on rank {r['rank']}")
+    check_health("decomp_ranks", hl, n_start, 0, (0.90, 1.10))
+    check_agreement("decomp_ranks", agree)
+    return {"ranks": ranks, "agreement": agree}
+
+
+def phase_kernels_slab(dev) -> dict:
+    """K1 and K2 on rank 1's slab-local lattice of a RANKS-slab
+    dam3d_100k at step 0: the step's concatenation of locals and the
+    ghosts both neighbors send (their faces' particles), K2 on rp from
+    scatter_rp with the ghosts' rho/p as their owners compute it (the
+    single-device K1).  Bitwise their simple yardsticks, phase 3's
+    tolerances against the plain versions, times and bound."""
+    import numpy as np
+
+    from sph_tpu_torch import decomp, init, neighbors, pallas_step as ps
+    from sph_tpu_torch import physics, preset
+    from sph_tpu_torch import slot_kernels as sk
+
+    scene = preset("dam3d_100k")
+    params = scene.params
+    d = params.dim
+    s0 = init(scene, device=dev)
+    spec = decomp.SpatialSpec.for_state(scene, s0, RANKS)
+    slabs = decomp.spatial_slabs(s0, spec)
+    grid = neighbors.GridSpec.for_slab(scene, spec.slab_w, spec.axis)
+    geo = [decomp._slab_geometry(scene, spec, grid, r) for r in (0, 1, 2)]
+    # the single-device rho/p: what each ghost's owner computes for it
+    full = neighbors.GridSpec.for_scene(scene)
+    rho_g, p_g, _ = ps.pallas_rho_p_f(s0.x, s0.v, s0.active, params, full)
+
+    # each slab's slots: its live particles in order (their global
+    # indices), then pads
+    x0 = s0.x.cpu().numpy()
+    owner = decomp._slab_of(x0, spec)
+    live = s0.emit_step.cpu().numpy() != int(decomp.INACTIVE)
+
+    def tensors(r):
+        gi = np.zeros(spec.cap_local, np.int64)
+        sel = np.nonzero(live & (owner == r))[0]
+        gi[: len(sel)] = sel
+        return (torch.as_tensor(slabs[r]["x"], device=dev),
+                torch.as_tensor(slabs[r]["v"], device=dev),
+                torch.as_tensor(slabs[r]["emit_step"] <= 0, device=dev),
+                torch.as_tensor(gi, device=dev))
+
+    h = params.h
+    parts, ghost_rp = [], []
+    for r, face in ((0, "hi"), (2, "lo")):      # what ranks 0 and 2 send
+        x, v, act, gi = tensors(r)
+        lo, hi = geo[r][0], geo[r][1]
+        near = act & ((x[:, 0] >= float(hi - np.float32(h))) if face == "hi"
+                      else (x[:, 0] < float(lo + np.float32(h))))
+        idx, val, over = decomp._pack_idx(near, spec.cap_ghost)
+        check(int(over) == 0, "the ghost buffers hold the faces")
+        parts.append((
+            torch.where(val[:, None], decomp._gather_rows(x, idx), 1e18),
+            torch.where(val[:, None], decomp._gather_rows(v, idx), 0.0),
+            val))
+        # the ghosts' rho/p as their owner computes them
+        g = gi[torch.clamp(idx, max=spec.cap_local - 1)]
+        ghost_rp.append((torch.where(val, rho_g[g], 1.0),
+                         torch.where(val, p_g[g], 0.0)))
+    x1, v1, a1, gi1 = tensors(1)
+    cx = torch.cat([x1] + [g[0] for g in parts])
+    cv = torch.cat([v1] + [g[1] for g in parts])
+    c_act = torch.cat([a1] + [g[2] for g in parts])
+    ci = geo[1][2]
+    ctx = ps.pallas_split_build(cx, cv, c_act, params, grid, ci)
+    sg, addr, feat = ctx.sg, ctx.addr, ctx.feat
+    args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params)
+    where = "dam3d_100k, rank 1 of 4 slab-local lattice"
+    check(int(addr.overflow) == 0, f"no particle dropped at {where}")
+    rp_k = sk.slot_density(feat, *args)
+    rp_p = sk.density_plain(feat, *args)
+    torch.cuda.synchronize()
+    rho_k, ok = ps._gather_rho(rp_k, addr, sg, params)
+    rho_p, _ = ps._gather_rho(rp_p, addr, sg, params)
+    check(bool(torch.allclose(rho_k, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)),
+          f"K1 vs plain at {where}")
+    # the locals' rho is exact on the slab lattice: it is the global one
+    nl = spec.cap_local
+    check(bool(torch.allclose(rho_k[:nl][a1], rho_g[gi1][a1],
+                              rtol=RHO_RTOL, atol=RHO_ATOL)),
+          f"the locals' slab K1 rho vs the single-device K1 at {where}")
+    # K1's own EOS p (what the single-device K2 reads) against PyTorch's
+    # EOS of K1's rho (what the slab step re-imports through scatter_rp)
+    lane_p = (addr.row_pos.long() * 2 + 1) * sg.lanes + addr.pos.long()
+    p_kern = rp_k.reshape(-1)[torch.where(ok, lane_p, 0)][ok]
+    p_torch = physics.eos_pressure(rho_k, params)[ok]
+    eos = {"eos": params.eos, "bitwise": bool(torch.equal(p_kern, p_torch)),
+           "differ": int((p_kern != p_torch).sum()),
+           "max_abs": float((p_kern - p_torch).abs().max()),
+           "max_rel": float(((p_kern - p_torch).abs()
+                             / p_torch.abs().clamp(min=1e-30)).max())}
+    rho_cc = torch.cat([rho_k[:nl]] + [g[0] for g in ghost_rp])
+    p_cc = torch.cat([physics.eos_pressure(rho_k[:nl], params)]
+                     + [g[1] for g in ghost_rp])
+    rp_s = ps.scatter_rp(addr, rho_cc, p_cc, sg)
+    f_k = sk.slot_force(feat, rp_s, *args)
+    f_p = sk.force_plain(feat, rp_s, *args)
+    rp_simple = sk.slot_density_simple(feat, *args)
+    f_simple = sk.slot_force_simple(feat, rp_s, *args)
+    torch.cuda.synchronize()
+    check(bitwise(rp_k, rp_simple), f"K1 bitwise its yardstick at {where}")
+    check(bitwise(f_k, f_simple), f"K2 bitwise its yardstick at {where}")
+    fk = ps._gather_f(f_k, addr, sg, d, ok)
+    fp = ps._gather_f(f_p, addr, sg, d, ok)
+    f_err = float(torch.max(torch.abs(fk - fp)))
+    f_scale = float(torch.max(torch.abs(fp)))
+    check(f_err / f_scale < F_REL, f"K2 vs plain at {where}")
+    counts = pair_counts(feat, addr, sg, params)
+    res = {}
+    for name, kern, simple, plain, err in (
+        ("slot_density", lambda: sk.slot_density(feat, *args),
+         lambda: sk.slot_density_simple(feat, *args),
+         lambda: sk.density_plain(feat, *args),
+         float(torch.max(torch.abs(rho_k - rho_p)))),
+        ("slot_force", lambda: sk.slot_force(feat, rp_s, *args),
+         lambda: sk.slot_force_simple(feat, rp_s, *args),
+         lambda: sk.force_plain(feat, rp_s, *args), f_err),
+    ):
+        b_ms, b_by = bound(name, feat, addr, sg, d, counts)
+        res[name] = {"max_abs_err": err, "bitwise_simple": True,
+                     **in_turns(kern, simple), "plain_ms": cuda_ms(plain),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "kernels", "preset": "dam3d_100k",
+          "lattice": "slab-local, rank 1 of 4", "ci_offset": list(ci),
+          "slab_grid": list(grid.shape), "full_grid": list(full.shape),
+          "feat": list(feat.shape), "n_occ": int(addr.n_occ[0]),
+          "particles": int(ok.sum()), "ghosts": int(sum(int(g[2].sum())
+                                                         for g in parts)),
+          "pairs": counts, "f_max_rel_err": f_err / f_scale,
+          "k1_p_vs_torch_eos": eos, "kernels": res})
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import sph_tpu_torch as sph  # without the package: fail before any output
+
+    if sys.argv[1:2] == ["--decomp-rank"]:      # a rank of phase 33
+        return decomp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4])
 
     dev = torch.device("cuda")
     smi = smi_line()
@@ -2024,6 +2542,19 @@ def main() -> int:
     phase_grid("dam3d_100k", 10, dev)
     phase_cli()
 
+    # this slice: domain decomposition on torch.distributed
+    import tempfile
+
+    from sph_tpu_torch import comm
+
+    with tempfile.TemporaryDirectory() as tmp, process_group(
+            comm.backend_for(dev), 1, 0, tmp):
+        phase_decomp_dp(dev)
+        decomp_runs = {p: phase_decomp_slab(p, dev)
+                       for p in ("dam3d_100k", "splash3d_1m")}
+    at_slab = phase_kernels_slab(dev)
+    ranks = phase_decomp_ranks(dev)
+
     def resident(name):
         return {"resident4auto": {
             p: runs[f"resident:{p}"]["launches"][name]
@@ -2056,6 +2587,13 @@ def main() -> int:
                     **at_cap8[p][name]}
                 for p in ("dam3d_100k", "splash3d_1m")},
             **resident(name),
+            "at_slab": {"lattice": "slab-local, rank 1 of 4, dam3d_100k",
+                        **at_slab[name]},
+            "decomposed": {
+                **{f"decomp_slab {p}": decomp_runs[p]["launches"][name]
+                   for p in ("dam3d_100k", "splash3d_1m")},
+                **{f"decomp_ranks rank {r['rank']}": r["launches"][name]
+                   for r in ranks["ranks"]}},
         })
         bname = f"{name}_bf16"
         kernels.append({

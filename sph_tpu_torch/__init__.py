@@ -15,8 +15,10 @@ policy (`adaptive_cap=True`) — the production default,
 `run(scene, n, method="pallas", sort_every=4, slot_resident=True)`;
 `scatter_slots(staged=True)`; checkpoints, diagnostics and `spawn`; the
 renderer and the native frame encoder; the command line, `python -m
-sph_tpu_torch.cli run|record|presets`.  See ROADMAP.md for what follows
-(domain decomposition).
+sph_tpu_torch.cli run|record|presets`; domain decomposition on
+`torch.distributed` (`decomp.py`: the particle-DP step and per-step slabs,
+`run(scene, n, shards=N)` in an N-rank process group).  See ROADMAP.md for
+what follows (the slab fast path, pencils, the CLI's `--shards`).
 """
 
 from sph_tpu_torch.diagnostics import load_checkpoint, save_checkpoint

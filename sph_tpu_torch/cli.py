@@ -13,7 +13,9 @@ and defaults are the reference's.  The device is `--device` (default
 `cuda`): with no card the command exits non-zero with one line, and it
 never carries on on the CPU unless `--device cpu` asks for it.
 Contradictory flags exit 2 with one line before the device is touched.
-Domain decomposition (`--shards`) is not ported yet and exits 2; the
+The decomposed run (`--shards`) exits 2: the library's `run(shards=N)`
+runs per-step slabs under `torchrun`, and the command line's default
+`--method auto` is the slab fast path, not ported yet; the
 reference's `bench` subcommand drives a JAX benchmark folder and has no
 counterpart here.
 """
@@ -184,8 +186,9 @@ def _validate_fastpath_flags(args) -> None:
     design (it prints a note), so it skips them here."""
     if args.shards:
         raise _UsageError(
-            "--shards: domain decomposition is not ported yet "
-            "(ROADMAP.md Queue 1 item 14)")
+            "--shards: the command line's decomposed run is not ported yet "
+            "(ROADMAP.md Queue 1 item 14.5); the library runs per-step "
+            "slabs with run(shards=N) under torchrun")
     rk = args.repair_k if args.repair_k is not None else 0
     if rk < 0:
         raise _UsageError("--repair-k must be >= 0")

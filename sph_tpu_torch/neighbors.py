@@ -1,5 +1,5 @@
 """Cell-grid geometry, per-particle cell indices, and the grid method
-(port of `sph_tpu/neighbors.py` without its decomposition specs).
+(port of `sph_tpu/neighbors.py` without its pencil spec).
 
 The cell size is h (+ a Verlet skin under address reuse), so every pair
 with r < h lies within ±1 cell on each axis.
@@ -16,8 +16,13 @@ XLA with no Pallas kernel:
      whose candidate gathers fit `GATHER_BUDGET` bytes.
 
 A particle past a cell's cap falls out of its tile (`cell_overflow`
-reports by how much), as in the reference.  The decomposition specs
-(`for_slab`, `for_pencil`) come with ROADMAP.md Queue 1 item 14.
+reports by how much), as in the reference.
+
+Slab decomposition (`decomp.py`) runs on a slab-local lattice
+(`GridSpec.for_slab`): fewer cells along the slab axis, indices computed
+against the global lattice and shifted by a whole number of cells per rank
+(`ci_offset`).  The pencil spec (`for_pencil`) comes with ROADMAP.md
+Queue 1 item 14.4.
 """
 
 from __future__ import annotations
@@ -99,13 +104,35 @@ class GridSpec:
         cap = _round_up(cap, xsub)
         return GridSpec(lo=lo, cell=cell, shape=shape, cap=cap, xsub=xsub)
 
+    @staticmethod
+    def for_slab(scene: Scene, slab_w: float, axis: int,
+                 cap: int | None = None, skin: float = 0.0) -> "GridSpec":
+        """Slab-local grid of the spatial decomposition: along `axis` it
+        spans one slab plus an (h + skin)-deep ghost band and margin cells,
+        so a rank's grid and slot memory scale 1/n_shards.  `lo` stays the
+        global origin; each rank shifts its cell indices by an integer
+        `ci_offset` (`cell_index`)."""
+        full = GridSpec.for_scene(scene, cap=cap, skin=skin)
+        h_eff = scene.params.h + skin
+        # cells covering [my_lo − h_eff − 2·cell, my_hi + h_eff + cell] for
+        # any alignment of the slab against the lattice
+        n_ax = int(math.ceil((slab_w + 2 * h_eff) / full.cell)) + 3
+        shape = tuple(min(n_ax, s) if a == axis else s
+                      for a, s in enumerate(full.shape))
+        return GridSpec(lo=full.lo, cell=full.cell, shape=shape,
+                        cap=full.cap, xsub=full.xsub)
 
-def cell_index(x: torch.Tensor, active: torch.Tensor, grid: GridSpec):
+
+def cell_index(x: torch.Tensor, active: torch.Tensor, grid: GridSpec,
+               ci_offset: tuple[int, ...] | None = None):
     """Per-particle (multi-index [N, D] i32, flat row id [N] i32).
 
     Out-of-domain actives clip to edge cells (clipping only shrinks
     cell-space distance, so the ±1 window stays a superset); inactives go
-    to the dump row.
+    to the dump row.  `ci_offset` (D ints) shifts the index origin by whole
+    cells for a slab-local grid (`GridSpec.for_slab`): an integer
+    subtraction, so the pair arithmetic does not depend on the
+    decomposition.
 
     Binning is bitwise the reference's: fp32 `floor((x − lo) / cell)` with a
     true IEEE division.  The divisor is a 0-d tensor on x's device because
@@ -115,6 +142,8 @@ def cell_index(x: torch.Tensor, active: torch.Tensor, grid: GridSpec):
     lo = device_const(grid.lo, x.dtype, x.device)
     cell = device_const(grid.cell, x.dtype, x.device)
     ci = torch.floor((x - lo) / cell).to(torch.int32)
+    if ci_offset is not None:
+        ci = ci - device_const(tuple(ci_offset), torch.int32, x.device)
     hi = device_const(tuple(s - 1 for s in grid.shape), torch.int32, x.device)
     ci = torch.minimum(torch.clamp(ci, min=0), hi)
     # ravel, last axis fastest (so ±1 in the last axis is contiguous in rows)
@@ -236,8 +265,8 @@ def _feat_pad(x, v, rho, p):
     return torch.cat([feat, dummy], dim=0)
 
 
-def _tiles(x, active, grid: GridSpec):
-    ci, flat = cell_index(x, active, grid)
+def _tiles(x, active, grid: GridSpec, ci_offset=None):
+    ci, flat = cell_index(x, active, grid, ci_offset)
     return ci, build_tiles(flat, grid)[0]
 
 
@@ -263,15 +292,19 @@ def _force_pass(x, v, rho, p, active, params, grid, ci, tile):
     return f * active[:, None].to(x.dtype)
 
 
-def grid_density(x, active, params: SimParams, grid: GridSpec):
-    """Density only (the reference's split phase)."""
-    return _density_pass(x, active, params, grid, *_tiles(x, active, grid))
+def grid_density(x, active, params: SimParams, grid: GridSpec,
+                 ci_offset=None):
+    """Density only (the split phase of the halo-exchange step, where ghost
+    rho/p are re-imported between the passes — `decomp.py`)."""
+    return _density_pass(x, active, params, grid,
+                         *_tiles(x, active, grid, ci_offset))
 
 
-def grid_forces(x, v, rho, p, active, params: SimParams, grid: GridSpec):
-    """Pairwise forces given rho/p (the reference's split phase)."""
+def grid_forces(x, v, rho, p, active, params: SimParams, grid: GridSpec,
+                ci_offset=None):
+    """Pairwise forces given rho/p (split phase, see grid_density)."""
     return _force_pass(x, v, rho, p, active, params, grid,
-                       *_tiles(x, active, grid))
+                       *_tiles(x, active, grid, ci_offset))
 
 
 def grid_rho_p_f(x, v, active, params: SimParams, grid: GridSpec):

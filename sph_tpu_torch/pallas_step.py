@@ -227,11 +227,14 @@ class SlotAddr:
 
 
 def build_addr(x: torch.Tensor, active: torch.Tensor, grid: GridSpec,
-               sg: SlotGrid) -> SlotAddr:
+               sg: SlotGrid, ci_offset: tuple[int, ...] | None = None
+               ) -> SlotAddr:
+    """`ci_offset` (D ints) places a slab-local grid on the global lattice
+    (`neighbors.cell_index`); `center` stays in global coordinates."""
     n = x.shape[0]
     dev = x.device
     i32 = torch.int32
-    ci, flat = cell_index(x, active, grid)
+    ci, flat = cell_index(x, active, grid, ci_offset)
     in_cell = flat < grid.n_cells
     h0 = (ci[:, 0] + 1) if sg.dim == 3 else torch.zeros(n, dtype=i32, device=dev)
     h1 = ci[:, -2] + 1
@@ -257,6 +260,8 @@ def build_addr(x: torch.Tensor, active: torch.Tensor, grid: GridSpec,
             lo_x = device_const(grid.lo[-1], x.dtype, dev)
             cell_x = device_const(grid.cell / sg.xsub, x.dtype, dev)
             sxf = torch.floor((x[:, -1] - lo_x) / cell_x).to(i32)
+            if ci_offset is not None:
+                sxf = sxf - int(ci_offset[-1]) * sg.xsub
             base_sx = ci[:, -1] * sg.xsub
             sx = torch.minimum(torch.maximum(sxf, base_sx),
                                base_sx + (sg.xsub - 1))
@@ -327,6 +332,10 @@ def build_addr(x: torch.Tensor, active: torch.Tensor, grid: GridSpec,
     nbr_pos[:, 0] = 0
     lo = device_const(grid.lo, x.dtype, dev)
     cell = device_const(grid.cell, x.dtype, dev)
+    if ci_offset is not None:
+        ci = ci + device_const(tuple(ci_offset), i32, dev)
+        if sg.xsub > 1 and not sg.packed:
+            sx = sx + int(ci_offset[-1]) * sg.xsub
     center = lo + (ci.to(x.dtype) + 0.5) * cell
     if sg.xsub > 1:    # x: the slot-cell center (the lane binning)
         cx = (device_const(grid.lo[-1], x.dtype, dev)
@@ -440,11 +449,11 @@ def scatter_slots_packed(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid,
     return flat[:size].view(torch.float32).view(sg.c_rows, ncols, sg.lanes)
 
 
-def slot_overflow(x, active, grid: GridSpec, sg: SlotGrid):
+def slot_overflow(x, active, grid: GridSpec, sg: SlotGrid, ci_offset=None):
     """(cell overflow count, row overflow count): >0 ⇒ static caps dropped
     work this step."""
-    addr = build_addr(x, active, grid, sg)
-    _, flat = cell_index(x, active, grid)
+    addr = build_addr(x, active, grid, sg, ci_offset)
+    _, flat = cell_index(x, active, grid, ci_offset)
     cell_over = torch.sum((~addr.valid) & (flat < grid.n_cells), dtype=torch.int32)
     row_over = torch.sum(addr.valid & (addr.row_pos == 0), dtype=torch.int32)
     return cell_over, row_over
@@ -557,3 +566,75 @@ def pallas_rho_p_f(
     p = physics.eos_pressure(rho, params)
     f = _gather_f(f_slot, addr, sg, d, ok)
     return rho, p, f
+
+
+# ---------------------------------------------------------------------------
+# Split phases: density, then forces with external rho/p (decomp.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SplitCtx:
+    """One addressing and one feature scatter shared by the split density
+    and force phases of the halo-exchange step (`decomp.py`): positions do
+    not move between them, only the ghosts' rho/p are re-imported."""
+
+    sg: SlotGrid
+    addr: SlotAddr
+    feat: torch.Tensor
+
+
+def pallas_split_build(x, v, active, params: SimParams, grid: GridSpec,
+                       ci_offset=None) -> SplitCtx:
+    """The shared SplitCtx on `grid`, shifted by `ci_offset` on a
+    slab-local lattice (`neighbors.cell_index`)."""
+    sg = slot_grid(grid)
+    addr = build_addr(x, active, grid, sg, ci_offset)
+    rows = (_rel_rows(x, v, addr) if params.precision == "bf16"
+            else _pack_rows6(x, v))
+    return SplitCtx(sg=sg, addr=addr, feat=scatter_slots(addr, rows, sg))
+
+
+def pallas_density_split(ctx: SplitCtx, params: SimParams):
+    """K1 over a prebuilt SplitCtx → per-particle rho."""
+    rp_slot = _call_density(ctx.feat, ctx.addr, ctx.sg, params)
+    return _gather_rho(rp_slot, ctx.addr, ctx.sg, params)[0]
+
+
+def pallas_forces_split(ctx: SplitCtx, rho, p, params: SimParams, d: int):
+    """K2 over a prebuilt SplitCtx with external per-particle rho/p (the
+    ghosts' from their owners, through `scatter_rp`) → per-particle f."""
+    rp = scatter_rp(ctx.addr, rho, p, ctx.sg)
+    f_slot = _call_force(ctx.feat, rp, ctx.addr, ctx.sg, params)
+    return _gather_f(f_slot, ctx.addr, ctx.sg, d, ctx.addr.ok())
+
+
+def pallas_density(x, active, params: SimParams, grid: GridSpec,
+                   ci_offset=None):
+    """Density-only phase (mirrors `neighbors.grid_density`)."""
+    ctx = pallas_split_build(x, torch.zeros_like(x), active, params, grid,
+                             ci_offset)
+    return pallas_density_split(ctx, params)
+
+
+def scatter_rp(addr: SlotAddr, rho, p, sg: SlotGrid) -> torch.Tensor:
+    """External per-particle rho/p → the [c_rows, 2, lanes] rp layout K2
+    streams, zeros in empty slots.  Particles without a slot write to one
+    spare element past the end (the reference's dropped writes)."""
+    size = sg.c_rows * 2 * sg.lanes
+    base = torch.where(addr.ok(),
+                       addr.row_pos.long() * (2 * sg.lanes) + addr.pos.long(),
+                       size)
+    idx = torch.stack([base, torch.where(base < size, base + sg.lanes, size)],
+                      dim=1)
+    flat = torch.zeros(size + 1, dtype=rho.dtype, device=rho.device)
+    flat.index_put_((idx.reshape(-1),),
+                    torch.stack([rho, p], dim=1).reshape(-1))
+    return flat[:size].view(sg.c_rows, 2, sg.lanes)
+
+
+def pallas_forces(x, v, rho, p, active, params: SimParams, grid: GridSpec,
+                  ci_offset=None):
+    """Force-only phase given rho/p (mirrors `neighbors.grid_forces`)."""
+    ctx = pallas_split_build(x, v, active, params, grid, ci_offset)
+    return pallas_forces_split(ctx, rho, p, params, x.shape[1])

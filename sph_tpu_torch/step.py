@@ -17,8 +17,9 @@ packed_scatter transport, under `make_audited_advance`'s policies
 policy); each with the kernel options `precision="bf16"`, `xsub` and
 `row_pair`.  The reference branches inside its scan with `lax.cond`; here
 each such decision is one fetch to the host at a block boundary (`FETCHES`
-counts them).  Domain decomposition (`shards`) raises NotImplementedError
-naming the ROADMAP.md item that brings it.
+counts them).  `run(shards=N)` runs per-step slabs across an N-rank
+`torch.distributed` world (`decomp.py`); pencils and the slab fast path
+raise NotImplementedError naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -39,17 +40,21 @@ from sph_tpu_torch.state import State, init
 _ROADMAP = "(ROADMAP.md Queue 1 item {})"
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet " + _ROADMAP.format(item))
 
 
-def _check_slice(method: str, *, shards=None) -> None:
+def _check_slice(method: str, *, shards=None, sort_every: int = 1) -> None:
     """Raise for an unknown method and for the options the port does not
-    have yet."""
+    have yet: pencils (`shards=(n1, n2)`) and the slab fast path
+    (`sort_every > 1` with shards)."""
     if method not in ("naive", "grid", "pallas"):
         raise ValueError(f"unknown neighbor method {method!r}")
-    if shards:
-        raise _not_ported("shards (domain decomposition)", 14)
+    if shards and not isinstance(shards, int) and len(shards) > 1:
+        raise _not_ported("shards=(n1, n2) (pencil decomposition)", "14.4")
+    if shards and sort_every > 1:
+        raise _not_ported("sort_every > 1 with shards (the slab fast path)",
+                          "14.3")
 
 
 def _check_packed(scene: Scene, method: str, *, xsub: int = 1,
@@ -1541,6 +1546,7 @@ def run(
     slot_resident: bool = False,
     adaptive_cap: bool = False,
     shards: int | tuple[int, ...] | None = None,
+    shard_axis: int = 0,
     membership_audit: bool = True,
     repair_k: int | None = None,
     packed_rows: bool | None = None,
@@ -1562,13 +1568,49 @@ def run(
     elsewhere; True/False pin it.  xsub and row_pair are the kernel
     layout options of `make_audited_advance` (the reference reaches them
     through `make_advance`; `run` passes them on, and the prime and the
-    exact re-runs keep the default layout, as there)."""
-    _check_slice(method, shards=shards)
-    dev = resolve_device(device)
+    exact re-runs keep the default layout, as there).
+
+    shards=N: per-step slabs along `shard_axis` across the N ranks of the
+    initialized `torch.distributed` process group (as under `torchrun
+    --nproc-per-node N`), each on `device` (default `cuda:LOCAL_RANK`):
+    the state is sharded once, advanced with
+    `decomp.make_audited_spatial_advance`, re-specced from the gathered
+    state when the flow outgrows the static buffers, and the GLOBAL state
+    is returned on every rank (and passed to `frame_callback` after each
+    dispatch).  Its capacity is n × the local capacity and its particle
+    order follows slab ownership.  `packed_rows` is ignored there, with a
+    notice, as in the reference; `adaptive_cap`, `membership_audit` and
+    `repair_k` (knobs of the fast path) are not read."""
+    _check_slice(method, shards=shards, sort_every=sort_every)
+    if shards and not isinstance(shards, int):
+        (shards,) = shards
+    if shards:
+        from sph_tpu_torch import comm
+
+        if not _dist_ready(shards):
+            raise ValueError(
+                f"run(shards={shards}) needs an initialized torch.distributed "
+                f"process group of {shards} ranks, one process per rank: "
+                f"start it under `torchrun --nproc-per-node {shards}` and "
+                f"call torch.distributed.init_process_group first")
+        if xsub != 1 or row_pair:
+            raise ValueError(
+                "xsub and row_pair are single-device layout options; "
+                "not with shards")
+        dev = comm.rank_device(device)
+    else:
+        dev = resolve_device(device)
     if state is None:
         state = init(scene, device=dev)
     if scene.params.integrator == "leapfrog" and int(state.step) == 0:
         state = prime(scene, state, method=method, device=dev)
+    if shards:
+        if packed_rows is not None:
+            # packed rows are single-device only; slabs use the slot layout
+            print("sph_tpu_torch: packed_rows is single-chip only; ignored "
+                  "with shards (slot layout used)", file=sys.stderr)
+        return _run_decomposed(scene, n_steps, method, steps_per_dispatch,
+                               state, frame_callback, shards, shard_axis, dev)
     if sort_every > 1:
         steps_per_dispatch -= steps_per_dispatch % sort_every
         steps_per_dispatch = max(steps_per_dispatch, sort_every)
@@ -1592,3 +1634,50 @@ def run(
         if frame_callback is not None:
             frame_callback(state)
     return state
+
+
+def _dist_ready(world: int) -> bool:
+    """A torch.distributed process group of `world` ranks is initialized."""
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() == world)
+
+
+def _run_decomposed(scene, n_steps, method, steps_per_dispatch, state,
+                    frame_callback, shards: int, shard_axis: int, dev):
+    """run(shards=N): shard once, advance with the audited per-step slab
+    path, re-spec elastically on static-cap outgrowth
+    (`decomp.SpatialCapOverflow`, raised on every rank together), gather
+    the global view for the callback and the return value.  Every rank
+    computes each spec from the same gathered arrays."""
+    from sph_tpu_torch import decomp
+
+    def build(st, spd):
+        spec = decomp.SpatialSpec.for_state(scene, st, shards,
+                                            axis=shard_axis)
+        loc = decomp.spatial_shard_state(st, scene, spec, dev)
+        return loc, decomp.make_audited_spatial_advance(scene, spec, method,
+                                                        spd)
+
+    def advance_block(loc, adv, spd):
+        try:
+            return adv(loc), adv
+        except decomp.SpatialCapOverflow:
+            # the flow outgrew the static buffers: re-size from the
+            # dispatch's input and run it again
+            loc2, adv2 = build(decomp.spatial_gather_state(loc), spd)
+            return adv2(loc2), adv2
+
+    n_disp, rem = divmod(n_steps, steps_per_dispatch)
+    loc, adv = build(state, steps_per_dispatch)
+    for _ in range(n_disp):
+        loc, adv = advance_block(loc, adv, steps_per_dispatch)
+        if frame_callback is not None:
+            frame_callback(decomp.spatial_gather_state(loc))
+    if rem:
+        loc, adv = build(decomp.spatial_gather_state(loc), rem)
+        loc, adv = advance_block(loc, adv, rem)
+        if frame_callback is not None:
+            frame_callback(decomp.spatial_gather_state(loc))
+    return decomp.spatial_gather_state(loc)

@@ -134,7 +134,7 @@ def test_bad_flag_combos_exit_2_like_the_reference(argv, capsys,
 def test_shards_exit_2_naming_item_14(shards, capsys):
     assert cli.main(["run", "tutorial2d", "--shards", shards, *CPU]) == 2
     err = capsys.readouterr().err.strip()
-    assert "ROADMAP.md Queue 1 item 14" in err and "\n" not in err
+    assert "ROADMAP.md Queue 1 item 14.5" in err and "\n" not in err
 
 
 def test_interact_spawn_and_reset(tmp_path, capsys):

@@ -38,7 +38,8 @@ def test_import_pulls_in_neither_jax_nor_sph_tpu():
         "sph_tpu_torch.diagnostics, sph_tpu_torch._build, "
         "sph_tpu_torch.probe_vpu_bf16, sph_tpu_torch.cli, "
         "sph_tpu_torch.render, sph_tpu_torch.io_native, "
-        "sph_tpu_torch.neighbors\n"
+        "sph_tpu_torch.neighbors, sph_tpu_torch.comm, "
+        "sph_tpu_torch.decomp\n"
         "import pkgutil\n"
         "for m in pkgutil.iter_modules(sph_tpu_torch.__path__):\n"
         "    __import__('sph_tpu_torch.' + m.name)\n"
@@ -181,13 +182,16 @@ def test_wrappers_reject_malformed_slot_arrays():
                                 gc, 16, p)
 
 
-# What stays out around the ported paths: the resident path and its repair
-# across slabs (domain decomposition).
+# What stays out around the ported paths: the slab fast path (reuse,
+# resident, repair across slabs) and pencils.
 OUT_OF_SLICE = {
     "slot_resident": lambda s: port.run(s, 4, "pallas", sort_every=4,
                                         slot_resident=True, shards=2,
                                         device="cpu"),
-    "shards": lambda s: port.run(s, 4, "pallas", shards=2, device="cpu"),
+    "shards": lambda s: port.run(s, 4, "pallas", shards=(2, 2),
+                                 device="cpu"),
+    "shards_fast_path": lambda s: port.run(s, 4, "pallas", sort_every=4,
+                                           shards=2, device="cpu"),
     "repair_k": lambda s: port.run(s, 4, "pallas", sort_every=4,
                                    slot_resident=True, repair_k=64, shards=2,
                                    device="cpu"),
@@ -196,8 +200,18 @@ OUT_OF_SLICE = {
 
 @pytest.mark.parametrize("option", sorted(OUT_OF_SLICE))
 def test_out_of_slice_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    item = "14.4" if option == "shards" else "14.3"
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue 1 item {item}"):
         OUT_OF_SLICE[option](_scene())
+
+
+def test_run_shards_needs_a_process_group():
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        port.run(_scene(), 4, "grid", shards=2, device="cpu")
 
 
 def _bf16(s):
