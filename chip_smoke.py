@@ -165,12 +165,51 @@ Phases, each printed as one JSON line:
               launched 101 times a rank, ranks 1-3 on shifted lattices,
               one spec; the gathered state's health and, against the
               single-device per-step run, the active count exactly and x
-              within 1e-4 of scale by nearest neighbor
+              within 1e-4 of scale by nearest neighbor; then the slab
+              fast path on the same ranks,
+              run(..., sort_every=4, slot_resident=True, shards=4) in
+              dispatches of 20: frames after each, one spec, every rank's
+              counters (heals, repairs, rebuilds, mode) equal, K1/K2
+              launched 101 + 4 per healed block, against the single-device
+              resident4auto run of the same dispatches by nearest
+              neighbor; the same fast path, with the same checks, on the
+              tank with a dart (`dart_scene`), which is repaired in place
+              mid-dispatch, and on emitters3d@settled for EMIT_STEPS
+              steps, whose emission at step 260,036 forces a rebuild of
+              every rank mid-dispatch; and each rank runs phase 38's jet
+              sequence
+ 35. decomp_fast  the slab fast path run(scene, n, method="pallas",
+              sort_every=4, slot_resident=True, shards=1) in the one-rank
+              NCCL world at dam3d_100k (200 steps) and splash3d_1m (20),
+              one dispatch: health, one spec, the policy's counters and
+              host fetches per block, K1/K2 launched n + 1 + 4 per healed
+              block, against the single-device resident4auto run slot by
+              slot (active count exactly, x within 1e-4 of scale); host
+              ms/step in turns with resident4auto and the per-step
+              run(shards=1); device ms and operations a step of a 12-step
+              dispatch of each (profile)
+ 36. decomp_classic  the fast path's classic form (slot_resident=False)
+              through make_audited_spatial_advance at dam3d_100k, one
+              200-step dispatch: health, K1/K2 launched once a step (twice
+              after an exact re-run), against the single-device
+              sort_every=4 reuse run slot by slot
+ 37. kernels  (with phase 33) K1 and K2 on rank 1's skinned slab-local
+              lattice (the skin of sort_every=4) of a 4-slab dam3d_100k
+              with the auto-rebuild path's 2·(h + skin)-deep ghost bands:
+              phase 33's checks, times and bound
+ 38. decomp_heal  the jet of phase 28, at 8000 along x, under
+              make_audited_spatial_advance
+              (slot-resident auto-rebuild, 8-step dispatches, re-probing
+              every 2) in the one-rank world: every block of three
+              dispatches heals, the advance demotes after the second and
+              stays demoted on its re-probe, K1/K2 launched 8 times a
+              block, and the first dispatch is bitwise the per-step slab
+              advance from its input
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
-Phases 31-32 run in a one-rank NCCL process group made through a file
-store in a temporary directory.  Every path reads its launch counts
+Phases 31-32, 35-36 and 38 run in a one-rank NCCL process group made
+through a file store in a temporary directory.  Every path reads its launch counts
 through `read_counts`, which checks that
 no yardstick and no variant of a launch choice ran in it.  Any failed check
 raises and the script exits non-zero without the last line.  It imports
@@ -1864,6 +1903,17 @@ def phase_cli() -> None:
 # steps each decomposed path is driven for
 DECOMP_STEPS = {"dam3d_100k": 200, "splash3d_1m": 20}
 RANKS, RANKS_STEPS = 4, 100
+RANKS_FAST_SPD = 20       # the fast path's dispatches on the four ranks
+# The fast path's mid-dispatch branches on the four ranks.  A dart in the
+# dam3d_100k tank: one particle at 400 along z (0.64 a block, under skin/2
+# = 0.72), in slab 1's interior, 1.96 before the lattice face at z = 34 ·
+# 17.44, so that the membership predicate fires at its third block and it
+# is repaired in place (every rank consents), then twice more as it
+# crosses.  (An emitter in the tank would widen the skin to 4.32, and the
+# cells of 20.32 overflow cap 16 at every build.)  And emitters3d@settled,
+# whose 32 particles that activate at step 260,036 force a rebuild of
+# every rank at the top of the second dispatch's last block.
+DART_Z, DART_SPEED, EMIT_STEPS = 590.98, 400.0, 40
 
 
 @contextlib.contextmanager
@@ -2099,6 +2149,263 @@ def phase_decomp_slab(name: str, dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def audited_spatial():
+    """The audited slab advances `run(shards=)` makes while the block runs
+    (observation only: they carry the policy's counters and mode)."""
+    from sph_tpu_torch import decomp
+
+    made = []
+    real = decomp.make_audited_spatial_advance
+
+    def spy(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    decomp.make_audited_spatial_advance = spy
+    try:
+        yield made
+    finally:
+        decomp.make_audited_spatial_advance = real
+
+
+def policy_of(made, blocks: int, fetches: dict) -> dict:
+    """The counters of the audited slab advances `made`, per block."""
+    pol = {k: sum(getattr(a, k) for a in made)
+           for k in ("healed", "repaired", "rebuilds")}
+    return {**pol, "modes": [a.mode for a in made], "blocks": blocks,
+            "rebuilds_per_block": pol["rebuilds"] / blocks,
+            "host_fetches": {**fetches, "per_block":
+                             fetches["fetches"] / max(fetches["blocks"], 1)}}
+
+
+def phase_decomp_fast(name: str, dev) -> dict:
+    """The slab fast path, run(..., method="pallas", sort_every=4,
+    slot_resident=True, shards=1), over the one-rank NCCL world at full
+    width in one dispatch: health, no overflow (one spec), the policy's
+    counters and host fetches per block, K1/K2 launched steps + prime + 4
+    per healed block; against the single-device resident4auto run of the
+    same plan slot by slot (the active count exactly, x within 1e-4 of the
+    scale); host ms/step in turns with it and with the per-step
+    run(shards=1); device ms and operations a step of one 12-step dispatch
+    of each (profile)."""
+    from sph_tpu_torch import decomp, default_skin, init
+    from sph_tpu_torch import make_audited_advance, preset, prime, run
+    from sph_tpu_torch import step as step_mod
+
+    scene, n_steps = preset(name), DECOMP_STEPS[name]
+    s0 = init(scene, device=dev)
+    n_start = int(s0.n_active())
+    primes = int(scene.params.integrator == "leapfrog")
+    notes = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with spec_builds() as specs, audited_spatial() as made, \
+            contextlib.redirect_stderr(notes):
+        a = run(scene, n_steps, method="pallas", steps_per_dispatch=n_steps,
+                shards=1, state=s0, device=dev, **RESIDENT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(f"decomp_fast {name}")
+    pol = policy_of(made, n_steps // RESIDENT["sort_every"],
+                    dict(step_mod.FETCHES))
+    with contextlib.redirect_stderr(io.StringIO()):
+        b = run(scene, n_steps, method="pallas", steps_per_dispatch=n_steps,
+                state=s0, device=dev, **RESIDENT)
+    agree = agreement(a, b, n_start, same_order=True)
+    hl = health(a, scene)
+
+    kinds = {"resident4auto": dict(RESIDENT),
+             "fast shards=1": dict(RESIDENT, shards=1),
+             "per-step shards=1": dict(shards=1)}
+    turns = {k: [] for k in kinds}
+    for k in ("resident4auto", "fast shards=1", "per-step shards=1",
+              "per-step shards=1", "fast shards=1", "resident4auto"):
+        turns[k].append(timed_run(scene, s0, n_steps, dev,
+                                  steps_per_dispatch=n_steps, **kinds[k]))
+
+    n_prof = 12
+    sp = prime(scene, s0, "pallas", device=dev)
+    skin = default_skin(scene, RESIDENT["sort_every"])
+    spec_f = decomp.SpatialSpec.for_state(scene, sp, 1, skin=skin)
+    loc_f = decomp.spatial_shard_state(sp, scene, spec_f, dev)
+    spec_s = decomp.SpatialSpec.for_state(scene, sp, 1)
+    loc_s = decomp.spatial_shard_state(sp, scene, spec_s, dev)
+    fast = decomp.make_audited_spatial_advance(scene, spec_f, "pallas",
+                                               n_prof, **RESIDENT)
+    single = make_audited_advance(scene, "pallas", n_prof, device=dev,
+                                  **RESIDENT)
+    slab = decomp.make_spatial_advance(scene, spec_s, "pallas", n_prof)
+    with contextlib.redirect_stderr(io.StringIO()):
+        prof = {"fast shards=1": profiled(lambda: fast(loc_f), n_prof),
+                "resident4auto": profiled(lambda: single(sp), n_prof),
+                "per-step shards=1": profiled(lambda: slab(loc_s), n_prof)}
+    out = {"phase": "decomp_fast", "preset": name, "world": 1,
+           "backend": "nccl", "steps": n_steps, "run": dict(RESIDENT),
+           "spec": dataclasses.asdict(specs[0]), "spec_builds": len(specs),
+           **hl, "agreement": agree, "launches": launches, "policy": pol,
+           "audit_notes": notes.getvalue().strip().splitlines(),
+           "ms_per_step": wall / n_steps * 1e3,
+           "ms_per_step_turns": turns,
+           "ms_per_step_median": {k: statistics.median(v)
+                                  for k, v in turns.items()},
+           "ms_per_step_note": "host clock over run(), prime included, in "
+                               "turns (resident, fast, per-step, per-step, "
+                               "fast, resident)",
+           "profile": prof}
+    emit(out)
+    check_health(f"decomp_fast {name}", hl, n_start, len(specs) - 1,
+                 (0.90, 1.10))
+    check_agreement(f"decomp_fast {name}", agree)
+    want = n_steps + primes + 4 * pol["healed"]
+    for k in ("slot_density", "slot_force"):
+        check(launches[k] == want,
+              f"{k} launched {launches[k]} times on decomp_fast {name} "
+              f"(want {want})")
+    check(pol["modes"] == ["resident"], f"the fast path ran at {name}")
+    return out
+
+
+def phase_decomp_classic(dev) -> dict:
+    """The classic fast-path form (slot_resident=False: pinned addressing
+    and ghosts, a fresh scatter and the split K1/K2 each step) through
+    make_audited_spatial_advance at dam3d_100k, one 200-step dispatch on
+    the one-rank world: health, K1/K2 launched once a step (twice if the
+    audit re-ran the dispatch per step), against the single-device
+    non-resident reuse run slot by slot."""
+    from sph_tpu_torch import decomp, default_skin, init, preset, prime, run
+
+    name = "dam3d_100k"
+    scene, n_steps = preset(name), DECOMP_STEPS[name]
+    sp = prime(scene, init(scene, device=dev), "pallas", device=dev)
+    n_start = int(sp.n_active())
+    spec = decomp.SpatialSpec.for_state(scene, sp, 1,
+                                        skin=default_skin(scene, 4))
+    loc = decomp.spatial_shard_state(sp, scene, spec, dev)
+    adv = decomp.make_audited_spatial_advance(scene, spec, "pallas", n_steps,
+                                              sort_every=4)
+    notes = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(notes):
+        a = decomp.spatial_gather_state(adv(loc))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts("decomp_classic")
+    reran = "re-ran exactly" in notes.getvalue()
+    with contextlib.redirect_stderr(io.StringIO()):
+        b = run(scene, n_steps, method="pallas", steps_per_dispatch=n_steps,
+                sort_every=4, state=sp, device=dev)
+    agree = agreement(a, b, n_start, same_order=True)
+    hl = health(a, scene)
+    emit({"phase": "decomp_classic", "preset": name, "world": 1,
+          "steps": n_steps, "sort_every": 4, "slot_resident": False, **hl,
+          "agreement": agree, "launches": launches, "reran": reran,
+          "audit_notes": notes.getvalue().strip().splitlines(),
+          "ms_per_step": wall / n_steps * 1e3,
+          "ms_per_step_note": "host clock over the dispatch and the gather"})
+    check_health("decomp_classic", hl, n_start, 0, (0.90, 1.10))
+    check_agreement("decomp_classic", agree)
+    want = n_steps * (2 if reran else 1)
+    for k in ("slot_density", "slot_force"):
+        check(launches[k] == want,
+              f"{k} launched {launches[k]} times on decomp_classic")
+    return {"launches": launches}
+
+
+# the jet of the cap-8 switch phase, 8-step dispatches (2 blocks), at
+# 8000 along x: at 2000 (3.2 a block on cells of 17.44) the block after a
+# fresh build can keep every particle of the seeded lattice inside its
+# build cell, which the membership-relaxed audit lets pass, and a
+# demotion needs every block to heal
+HEAL_SPD, HEAL_DISPATCHES, JET_SPEED = 8, 3, 8000.0
+
+
+def jet_scene():
+    from sph_tpu_torch import preset
+
+    base = preset("dam3d_100k")
+    return base.replace(blocks=tuple(
+        dataclasses.replace(b, velocity=(JET_SPEED, 0.0, 0.0))
+        for b in base.blocks))
+
+
+def heal_sequence(dev) -> dict:
+    """On this process group: the jet under make_audited_spatial_advance
+    (slot-resident auto-rebuild, re-probing every 2 dispatches) for
+    HEAL_DISPATCHES dispatches: the cumulative heals and the mode after
+    each, the K1/K2 launches (4 steps a block on the fast attempt and 4 in
+    its heal), the demotion notes; and whether the first dispatch, every
+    block healed, is bitwise the per-step slab advance from its input."""
+    from sph_tpu_torch import decomp, default_skin, init, prime
+    from sph_tpu_torch import step as step_mod
+
+    jet = jet_scene()
+    state = prime(jet, init(jet, device=dev), "pallas", device=dev)
+    spec = decomp.SpatialSpec.for_state(
+        jet, state, decomp.comm.world_size(),
+        skin=default_skin(jet, RESIDENT["sort_every"]))
+    loc = decomp.spatial_shard_state(state, jet, spec, dev)
+    saved = step_mod.PERSTEP_REPROBE_EVERY
+    step_mod.PERSTEP_REPROBE_EVERY = 2
+    notes = io.StringIO()
+    try:
+        adv = decomp.make_audited_spatial_advance(jet, spec, "pallas",
+                                                  HEAL_SPD, **RESIDENT)
+        torch.cuda.synchronize()
+        reset_counts()
+        healed, modes = [], []
+        first = None
+        with contextlib.redirect_stderr(notes):
+            for _ in range(HEAL_DISPATCHES):
+                before, loc = loc, adv(loc)
+                first = first or (before, loc)
+                healed.append(adv.healed)
+                modes.append(adv.mode)
+        torch.cuda.synchronize()
+        launches = read_counts("decomp_heal")
+    finally:
+        step_mod.PERSTEP_REPROBE_EVERY = saved
+    exact, worst = decomp.make_spatial_advance(jet, spec, "pallas",
+                                               HEAL_SPD)(first[0])
+    same = all(bool(torch.equal(getattr(first[1], f), getattr(exact, f)))
+               for f in ("x", "v", "acc", "rho", "p", "emit_step", "step"))
+    return {"healed": healed, "modes": modes,
+            "launches": {k: launches[k] for k in ("slot_density",
+                                                  "slot_force")},
+            "bitwise_per_step": same, "per_step_worst": int(worst),
+            "notes": notes.getvalue().strip().splitlines(),
+            "finite": bool(torch.isfinite(loc.x).all())}
+
+
+def check_heal(where: str, h: dict) -> None:
+    blocks = HEAL_SPD // RESIDENT["sort_every"]
+    check(h["healed"] == [blocks * (k + 1) for k in range(HEAL_DISPATCHES)],
+          f"every block of every jet dispatch healed {where}")
+    check(h["modes"] == ["resident", "perstep", "perstep"],
+          f"the jet demotes after 2 dispatches and stays demoted on its "
+          f"re-probe {where}")
+    check(any("demoting to the per-step spatial path" in n
+              for n in h["notes"]), f"the demotion note {where}")
+    want = HEAL_DISPATCHES * blocks * 2 * RESIDENT["sort_every"]
+    check(h["launches"]["slot_density"] == h["launches"]["slot_force"]
+          == want, f"K1/K2 launched {want} times by the jet {where}")
+    check(h["bitwise_per_step"] and h["per_step_worst"] == 0,
+          f"a fully healed dispatch is bitwise the per-step slabs {where}")
+    check(h["finite"], f"finite jet state {where}")
+
+
+def phase_decomp_heal(dev) -> dict:
+    """heal_sequence on the one-rank NCCL world (phase 38)."""
+    h = heal_sequence(dev)
+    emit({"phase": "decomp_heal", "preset": "dam3d_100k jet", "world": 1,
+          "backend": "nccl", "steps_per_dispatch": HEAL_SPD, **h})
+    check_heal("on one rank", h)
+    return h
+
+
 def decomp_rank_main(rank: int, world: int, tmp: str,
                      device: str = "cuda:0") -> int:
     """One of the RANKS processes of phase_decomp_ranks: run(shards=RANKS)
@@ -2134,11 +2441,59 @@ def decomp_rank_main(rank: int, world: int, tmp: str,
         launches = read_counts(f"decomp_ranks rank {rank}")
         if rank == 0:
             np.savez(Path(tmp) / "ranks.npz", **out.to_numpy())
+
+        # the slab fast path, in dispatches of RANKS_FAST_SPD: the tank, the
+        # tank with the dart, emitters3d@settled
+        settled, scene_e = sph.load_checkpoint(str(SETTLED), device=dev)
+        runs = {}
+        for key, sc, st, n in (("fast", scene, None, RANKS_STEPS),
+                               ("dart", dart_scene(), None, RANKS_STEPS),
+                               ("emit", scene_e, settled, EMIT_STEPS)):
+            out, runs[key] = fast_on_ranks(
+                sph, sc, st, n, dev, world, f"decomp_ranks {key} rank {rank}")
+            if rank == 0:
+                np.savez(Path(tmp) / f"{key}.npz", **out.to_numpy())
+        heal = heal_sequence(dev)
     emit({"rank": rank, "frames": frames, "launches": launches,
           "ci_offsets": sorted(set(map(tuple, offsets))),
           "spec_builds": len(specs), "cap_local": specs[0].cap_local,
-          "ms_per_step": wall / RANKS_STEPS * 1e3})
+          "ms_per_step": wall / RANKS_STEPS * 1e3, **runs, "heal": heal})
     return 0
+
+
+def dart_scene():
+    from sph_tpu_torch import Block, calibrate, preset
+
+    base = preset("dam3d_100k")
+    dart = Block(lo=(299.0, 549.0, DART_Z - 1.0),
+                 hi=(301.0, 551.0, DART_Z + 1.0),
+                 velocity=(0.0, 0.0, DART_SPEED))
+    return calibrate(base.replace(blocks=base.blocks + (dart,)))
+
+
+def fast_on_ranks(sph, scene, state, n_steps: int, dev, world: int,
+                  name: str) -> tuple:
+    """run(scene, n_steps, state=state, shards=world) on the slab fast path
+    in dispatches of RANKS_FAST_SPD: (state, this rank's numbers)."""
+    frames = []
+    notes = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with spec_builds() as specs, audited_spatial() as made, \
+            contextlib.redirect_stderr(notes):
+        out = sph.run(scene, n_steps, method="pallas", state=state,
+                      steps_per_dispatch=RANKS_FAST_SPD, shards=world,
+                      device=dev, **RESIDENT,
+                      frame_callback=lambda s: frames.append(int(s.step)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {"frames": frames, "spec_builds": len(specs),
+                 "launches": read_counts(name),
+                 "policy": policy_of(made, n_steps // 4,
+                                     dict(sph.step.FETCHES)),
+                 "notes": notes.getvalue().strip().splitlines(),
+                 "ms_per_step": wall / n_steps * 1e3}
 
 
 def phase_decomp_ranks(dev) -> dict:
@@ -2153,13 +2508,26 @@ def phase_decomp_ranks(dev) -> dict:
 
     import numpy as np
 
-    from sph_tpu_torch import init, preset, run
+    from sph_tpu_torch import init, load_checkpoint, preset, run
     from sph_tpu_torch.state import State
 
     scene = preset("dam3d_100k")
     s0 = init(scene, device=dev)
     n_start = int(s0.n_active())
     b = run(scene, RANKS_STEPS, method="pallas", state=s0, device=dev)
+    dscene = dart_scene()
+    sd = init(dscene, device=dev)
+    settled, scene_e = load_checkpoint(str(SETTLED), device=dev)
+    # the active count at the end: the start's and the emissions due
+    n_emit = int((settled.emit_step <= int(settled.step) + EMIT_STEPS).sum())
+    check(n_emit > int(settled.n_active()),
+          "an emission within the emitters3d@settled run")
+    fast_kw = dict(method="pallas", device=dev,
+                   steps_per_dispatch=RANKS_FAST_SPD, **RESIDENT)
+    with contextlib.redirect_stderr(io.StringIO()):
+        b_fast = run(scene, RANKS_STEPS, state=s0, **fast_kw)
+        b_dart = run(dscene, RANKS_STEPS, state=sd, **fast_kw)
+        b_emit = run(scene_e, EMIT_STEPS, state=settled, **fast_kw)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -2185,11 +2553,32 @@ def phase_decomp_ranks(dev) -> dict:
         ranks = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in res]
         a = State.from_numpy(dict(np.load(Path(tmp) / "ranks.npz")),
                              device=dev)
+        a_fast = State.from_numpy(dict(np.load(Path(tmp) / "fast.npz")),
+                                  device=dev)
+        a_dart = State.from_numpy(dict(np.load(Path(tmp) / "dart.npz")),
+                                  device=dev)
+        a_emit = State.from_numpy(dict(np.load(Path(tmp) / "emit.npz")),
+                                  device=dev)
     agree = agreement(a, b, n_start, same_order=False)
+    agree_fast = agreement(a_fast, b_fast, n_start, same_order=False)
+    agree_dart = agreement(a_dart, b_dart, n_start + 1, same_order=False)
+    agree_emit = agreement(a_emit, b_emit, n_emit, same_order=False)
     hl = health(a, scene)
+    hl_fast = health(a_fast, scene)
+    hl_dart = health(a_dart, dscene)
+    hl_emit = health(a_emit, scene_e)
     emit({"phase": "decomp_ranks", "preset": "dam3d_100k", "world": RANKS,
           "backend": "gloo", "device": "cuda:0", "steps": RANKS_STEPS,
           "ranks": ranks, **hl, "agreement": agree,
+          "fast": {"run": dict(RESIDENT,
+                               steps_per_dispatch=RANKS_FAST_SPD),
+                   **hl_fast, "agreement": agree_fast,
+                   "against": "single-device resident4auto, the same "
+                              "dispatches"},
+          "dart": {"dart_z": DART_Z, "dart_speed": DART_SPEED, **hl_dart,
+                   "agreement": agree_dart},
+          "emit": {"preset": "emitters3d@settled", "steps": EMIT_STEPS,
+                   **hl_emit, "agreement": agree_emit},
           "wall_s_all_ranks": wall,
           "note": "host ms/step of each rank, prime included; four "
                   "processes share one card and stage every exchange "
@@ -2207,16 +2596,57 @@ def phase_decomp_ranks(dev) -> dict:
                   f"a shifted lattice (ci_offset != 0) on rank {r['rank']}")
     check_health("decomp_ranks", hl, n_start, 0, (0.90, 1.10))
     check_agreement("decomp_ranks", agree)
-    return {"ranks": ranks, "agreement": agree}
+    # the fast path: the counters are mesh-wide, so every rank's equal
+    pol_keys = ("healed", "repaired", "rebuilds", "modes")
+    # (steps, K1/K2 prime launches) of each fast-path run
+    plan = {"fast": (RANKS_STEPS, 1), "dart": (RANKS_STEPS, 1),
+            "emit": (EMIT_STEPS, 0)}
+    for r in ranks:
+        for run_name, (n, primes) in plan.items():
+            f, f0 = r[run_name], ranks[0][run_name]
+            where = f"the {run_name} run's fast path on rank {r['rank']}"
+            check(f["frames"][-1] - f["frames"][0] == n - RANKS_FAST_SPD
+                  and len(f["frames"]) == n // RANKS_FAST_SPD,
+                  f"frames after each dispatch of {where}")
+            check(f["spec_builds"] == 1, f"no overflow on {where}")
+            check({k: f["policy"][k] for k in pol_keys}
+                  == {k: f0["policy"][k] for k in pol_keys},
+                  f"the counters of {where} equal rank 0's")
+            want = n + primes + 4 * f["policy"]["healed"]
+            for k in ("slot_density", "slot_force"):
+                check(f["launches"][k] == want,
+                      f"{k} launched {f['launches'][k]} times on {where} "
+                      f"(want {want})")
+        dp, ep = r["dart"]["policy"], r["emit"]["policy"]
+        check(dp["repaired"] >= 1 and dp["healed"] == 0,
+              f"the dart is repaired mid-dispatch, no heal, on rank "
+              f"{r['rank']}")
+        check(ep["rebuilds"] - ep["healed"] > EMIT_STEPS // RANKS_FAST_SPD,
+              f"a rebuild besides the dispatch tops and heals (the "
+              f"emission) on rank {r['rank']}")
+        check_heal(f"on rank {r['rank']} of {RANKS}", r["heal"])
+        check(r["heal"]["healed"] == ranks[0]["heal"]["healed"],
+              f"the jet's heals of rank {r['rank']} equal rank 0's")
+    check_health("decomp_ranks fast", hl_fast, n_start, 0, (0.90, 1.10))
+    check_agreement("decomp_ranks fast", agree_fast)
+    check_health("decomp_ranks dart", hl_dart, n_start + 1, 0, (0.90, 1.10))
+    check_agreement("decomp_ranks dart", agree_dart)
+    check_health("decomp_ranks emit", hl_emit, n_emit, 0,
+                  vmax_limit=3.0 * scene_e.params.sound_speed)
+    check_agreement("decomp_ranks emit", agree_emit)
+    return {"ranks": ranks, "agreement": agree, "agreement_fast": agree_fast,
+            "agreement_dart": agree_dart, "agreement_emit": agree_emit}
 
 
-def phase_kernels_slab(dev) -> dict:
+def phase_kernels_slab(dev, skin: float = 0.0) -> dict:
     """K1 and K2 on rank 1's slab-local lattice of a RANKS-slab
     dam3d_100k at step 0: the step's concatenation of locals and the
     ghosts both neighbors send (their faces' particles), K2 on rp from
     scatter_rp with the ghosts' rho/p as their owners compute it (the
     single-device K1).  Bitwise their simple yardsticks, phase 3's
-    tolerances against the plain versions, times and bound."""
+    tolerances against the plain versions, times and bound.  With `skin`
+    (phase 37): the fast path's skinned slab lattice, its ghosts the
+    auto-rebuild path's 2·(h + skin)-deep bands."""
     import numpy as np
 
     from sph_tpu_torch import decomp, init, neighbors, pallas_step as ps
@@ -2227,10 +2657,20 @@ def phase_kernels_slab(dev) -> dict:
     params = scene.params
     d = params.dim
     s0 = init(scene, device=dev)
-    spec = decomp.SpatialSpec.for_state(scene, s0, RANKS)
+    spec = decomp.SpatialSpec.for_state(scene, s0, RANKS, skin=skin)
     slabs = decomp.spatial_slabs(s0, spec)
-    grid = neighbors.GridSpec.for_slab(scene, spec.slab_w, spec.axis)
-    geo = [decomp._slab_geometry(scene, spec, grid, r) for r in (0, 1, 2)]
+    if skin:
+        grid = neighbors.GridSpec.for_slab(
+            scene, spec.slab_w, spec.axis,
+            cap=neighbors.GridSpec.for_scene(scene).cap, skin=skin)
+        band = 2.0 * (params.h + skin)
+        lattice = "skinned slab-local (sort_every=4), rank 1 of 4"
+    else:
+        grid = neighbors.GridSpec.for_slab(scene, spec.slab_w, spec.axis)
+        band = params.h
+        lattice = "slab-local, rank 1 of 4"
+    geo = [decomp._slab_geometry(scene, spec, grid, r, skin)
+           for r in (0, 1, 2)]
     # the single-device rho/p: what each ghost's owner computes for it
     full = neighbors.GridSpec.for_scene(scene)
     rho_g, p_g, _ = ps.pallas_rho_p_f(s0.x, s0.v, s0.active, params, full)
@@ -2250,13 +2690,13 @@ def phase_kernels_slab(dev) -> dict:
                 torch.as_tensor(slabs[r]["emit_step"] <= 0, device=dev),
                 torch.as_tensor(gi, device=dev))
 
-    h = params.h
     parts, ghost_rp = [], []
     for r, face in ((0, "hi"), (2, "lo")):      # what ranks 0 and 2 send
         x, v, act, gi = tensors(r)
         lo, hi = geo[r][0], geo[r][1]
-        near = act & ((x[:, 0] >= float(hi - np.float32(h))) if face == "hi"
-                      else (x[:, 0] < float(lo + np.float32(h))))
+        near = act & ((x[:, 0] >= float(hi - np.float32(band)))
+                      if face == "hi"
+                      else (x[:, 0] < float(lo + np.float32(band))))
         idx, val, over = decomp._pack_idx(near, spec.cap_ghost)
         check(int(over) == 0, "the ghost buffers hold the faces")
         parts.append((
@@ -2275,7 +2715,7 @@ def phase_kernels_slab(dev) -> dict:
     ctx = ps.pallas_split_build(cx, cv, c_act, params, grid, ci)
     sg, addr, feat = ctx.sg, ctx.addr, ctx.feat
     args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params)
-    where = "dam3d_100k, rank 1 of 4 slab-local lattice"
+    where = f"dam3d_100k, {lattice} lattice"
     check(int(addr.overflow) == 0, f"no particle dropped at {where}")
     rp_k = sk.slot_density(feat, *args)
     rp_p = sk.density_plain(feat, *args)
@@ -2331,7 +2771,7 @@ def phase_kernels_slab(dev) -> dict:
                      **in_turns(kern, simple), "plain_ms": cuda_ms(plain),
                      "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "kernels", "preset": "dam3d_100k",
-          "lattice": "slab-local, rank 1 of 4", "ci_offset": list(ci),
+          "lattice": lattice, "ghost_band": band, "ci_offset": list(ci),
           "slab_grid": list(grid.shape), "full_grid": list(full.shape),
           "feat": list(feat.shape), "n_occ": int(addr.n_occ[0]),
           "particles": int(ok.sum()), "ghosts": int(sum(int(g[2].sum())
@@ -2552,7 +2992,16 @@ def main() -> int:
         phase_decomp_dp(dev)
         decomp_runs = {p: phase_decomp_slab(p, dev)
                        for p in ("dam3d_100k", "splash3d_1m")}
+        # this slice: the slab fast path, its classic form, heal and
+        # demotion across slabs
+        fast_runs = {p: phase_decomp_fast(p, dev)
+                     for p in ("dam3d_100k", "splash3d_1m")}
+        classic = phase_decomp_classic(dev)
+        heal1 = phase_decomp_heal(dev)
     at_slab = phase_kernels_slab(dev)
+    at_slab_skin = phase_kernels_slab(
+        dev, skin=sph.default_skin(sph.preset("dam3d_100k"),
+                                   RESIDENT["sort_every"]))
     ranks = phase_decomp_ranks(dev)
 
     def resident(name):
@@ -2589,11 +3038,22 @@ def main() -> int:
             **resident(name),
             "at_slab": {"lattice": "slab-local, rank 1 of 4, dam3d_100k",
                         **at_slab[name]},
+            "at_slab_skinned": {
+                "lattice": "skinned slab-local (sort_every=4), rank 1 of 4, "
+                           "dam3d_100k", **at_slab_skin[name]},
             "decomposed": {
                 **{f"decomp_slab {p}": decomp_runs[p]["launches"][name]
                    for p in ("dam3d_100k", "splash3d_1m")},
+                **{f"decomp_fast {p}": fast_runs[p]["launches"][name]
+                   for p in ("dam3d_100k", "splash3d_1m")},
+                "decomp_classic dam3d_100k": classic["launches"][name],
+                "decomp_heal jet": heal1["launches"][name],
                 **{f"decomp_ranks rank {r['rank']}": r["launches"][name]
-                   for r in ranks["ranks"]}},
+                   for r in ranks["ranks"]},
+                **{f"decomp_ranks fast rank {r['rank']}":
+                   r["fast"]["launches"][name] for r in ranks["ranks"]},
+                **{f"decomp_ranks jet rank {r['rank']}":
+                   r["heal"]["launches"][name] for r in ranks["ranks"]}},
         })
         bname = f"{name}_bf16"
         kernels.append({

@@ -187,8 +187,8 @@ def _validate_fastpath_flags(args) -> None:
     if args.shards:
         raise _UsageError(
             "--shards: the command line's decomposed run is not ported yet "
-            "(ROADMAP.md Queue 1 item 14.5); the library runs per-step "
-            "slabs with run(shards=N) under torchrun")
+            "(ROADMAP.md Queue 1 item 14.5); the library runs slabs, the "
+            "fast path included, with run(shards=N) under torchrun")
     rk = args.repair_k if args.repair_k is not None else 0
     if rk < 0:
         raise _UsageError("--repair-k must be >= 0")

@@ -507,6 +507,14 @@ def _call_force(feat, rp, addr: SlotAddr, sg: SlotGrid, params: SimParams,
 # ---------------------------------------------------------------------------
 
 
+def slot_rows_view(slot: torch.Tensor) -> torch.Tensor:
+    """[c_rows, C, lanes] → [c_rows·lanes, C] feature-minor copy (one dense
+    transpose): a particle's C components become contiguous, so a
+    per-particle read is one row gather instead of C strided element
+    gathers."""
+    return slot.transpose(1, 2).reshape(-1, slot.shape[1])
+
+
 def _gather_rho(rp_slot, addr: SlotAddr, sg: SlotGrid, params: SimParams):
     ok = addr.ok()
     flat = addr.row_pos.long() * (2 * sg.lanes) + addr.pos.long()

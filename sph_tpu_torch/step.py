@@ -17,9 +17,10 @@ packed_scatter transport, under `make_audited_advance`'s policies
 policy); each with the kernel options `precision="bf16"`, `xsub` and
 `row_pair`.  The reference branches inside its scan with `lax.cond`; here
 each such decision is one fetch to the host at a block boundary (`FETCHES`
-counts them).  `run(shards=N)` runs per-step slabs across an N-rank
-`torch.distributed` world (`decomp.py`); pencils and the slab fast path
-raise NotImplementedError naming the ROADMAP.md item that brings them.
+counts them).  `run(shards=N)` runs slabs across an N-rank
+`torch.distributed` world (`decomp.py`), per step or on the slab fast
+path; pencils raise NotImplementedError naming the ROADMAP.md item that
+brings them.
 """
 
 from __future__ import annotations
@@ -44,17 +45,15 @@ def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet " + _ROADMAP.format(item))
 
 
-def _check_slice(method: str, *, shards=None, sort_every: int = 1) -> None:
-    """Raise for an unknown method and for the options the port does not
-    have yet: pencils (`shards=(n1, n2)`) and the slab fast path
-    (`sort_every > 1` with shards)."""
+def _check_slice(method: str, *, shards=None) -> None:
+    """Raise for an unknown method and for the option the port does not
+    have yet: pencils (`shards=(n1, n2)`).  Slabs (`shards=N`) run every
+    path, the fast path (`sort_every > 1`, slot-resident, auto-rebuild)
+    included."""
     if method not in ("naive", "grid", "pallas"):
         raise ValueError(f"unknown neighbor method {method!r}")
     if shards and not isinstance(shards, int) and len(shards) > 1:
         raise _not_ported("shards=(n1, n2) (pencil decomposition)", "14.4")
-    if shards and sort_every > 1:
-        raise _not_ported("sort_every > 1 with shards (the slab fast path)",
-                          "14.3")
 
 
 def _check_packed(scene: Scene, method: str, *, xsub: int = 1,
@@ -291,10 +290,12 @@ def _slot_bin_refs(addr, sg) -> list:
     return refs
 
 
-def _slot_inside_bin(xs, refs, grid):
+def _slot_inside_bin(xs, refs, grid, ci_offset=None):
     """[c_rows, 1, lanes] bool: the slot's CURRENT position still bins into
     its build cell, with `neighbors.cell_index`'s floor and clip, so
-    'inside' is exactly 'a rebuild would bin it identically'."""
+    'inside' is exactly 'a rebuild would bin it identically'.  `ci_offset`
+    (D ints) is a slab-local lattice's index shift (`decomp.py`): the refs
+    are local indices."""
     cell = device_const(grid.cell, xs.dtype, xs.device)
     ins = None
     for a in range(xs.shape[1]):
@@ -302,13 +303,15 @@ def _slot_inside_bin(xs, refs, grid):
             continue
         lo = device_const(grid.lo[a], xs.dtype, xs.device)
         ci = torch.floor((xs[:, a, :] - lo) / cell).to(torch.int32)
+        if ci_offset is not None:
+            ci = ci - ci_offset[a]
         ci = torch.clamp(ci, 0, grid.shape[a] - 1)
         eq = ci == refs[a]
         ins = eq if ins is None else ins & eq
     return ins[:, None, :]
 
 
-def _slot_bin_margin(xs, refs, grid):
+def _slot_bin_margin(xs, refs, grid, ci_offset=None):
     """[c_rows, 1, lanes]: distance to the nearest face of the slot's build
     cell (negative once outside); an exempt axis contributes no face."""
     m = None
@@ -316,35 +319,54 @@ def _slot_bin_margin(xs, refs, grid):
         ref = refs[a]
         if ref is None:
             continue
+        if ci_offset is not None:
+            ref = ref + ci_offset[a]
         lo_c = ref.to(xs.dtype) * grid.cell + grid.lo[a]
         ma = torch.minimum(xs[:, a, :] - lo_c, lo_c + grid.cell - xs[:, a, :])
         m = ma if m is None else torch.minimum(m, ma)
     return m[:, None, :]
 
 
-def _membership_risky(c, grid, dd2, dt, sort_every, budget):
+def _membership_risky(c, grid, dd2, dt, sort_every, budget, ci_offset=None,
+                      extra_margin=None):
     """[c_rows, 1, lanes] bool: the rebuild predicate's per-slot AND — the
     next block's 1.2×-projected move can BOTH take the slot out of its
-    build cell AND past the drift budget."""
+    build cell (or past `extra_margin`, the slab-face distance of a
+    decomposition: leavers keep the strict budget) AND past the drift
+    budget.  The one definition for the single-device and slab advances."""
     vs = c["vs"]
     speed = torch.sqrt(torch.sum(vs * vs, dim=1, keepdim=True))
     move = (1.2 * dt * sort_every) * speed
-    marg = _slot_bin_margin(c["xs"], c["refs"], grid)
+    marg = _slot_bin_margin(c["xs"], c["refs"], grid, ci_offset)
+    if extra_margin is not None:
+        marg = torch.minimum(marg, extra_margin)
     return c["movb"] & (marg < move) & (torch.sqrt(dd2) + move > budget)
 
 
-def _membership_bad(bad, xs, refs, grid):
+def _membership_bad(bad, xs, refs, grid, ci_offset=None, beyond=None):
     """Relax a strict drift-audit mask by membership: a violation is real
-    only once the slot ALSO left its build cell."""
-    return bad & ~_slot_inside_bin(xs, refs, grid)
+    only once the slot ALSO left its build cell — except where `beyond`
+    (a slab decomposition's beyond-the-face mask) holds, which keeps the
+    strict form."""
+    keep = ~_slot_inside_bin(xs, refs, grid, ci_offset)
+    if beyond is not None:
+        keep = keep | beyond
+    return bad & keep
 
 
-def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather):
+def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
+                      ci_off=None):
     """(plan, apply) for MINORITY SLOT REPAIR (see
     `_make_resident_auto_advance`).  Planned in particle space: `x0_p` holds
     every particle's build anchor (the shadow's x, which the caller advances
-    for repaired particles), `c["addr"]` its slot.  The risky test is the
-    particle-space mirror of `_membership_risky`, 1.2× projection included.
+    for repaired particles), `c["addr"]` its slot (its first `len(x0_p)`
+    entries: a slab's addressing also holds its ghosts).  The risky test is
+    the particle-space mirror of `_membership_risky`, 1.2× projection
+    included.  `ci_off` is a slab-local lattice's index shift;
+    `face_fn(x_now) -> (face_margin, allowed)` lets a slab fold its face
+    distance into the margin and veto the repair of any particle outside
+    `allowed` (a band particle has ghost copies on a neighbor whose
+    addressing a local repair cannot patch).
 
     JAX's padded `nonzero(size=)` becomes a cumsum rank scattered into a
     buffer with one spare dump entry, and its dropped `.at[].set/add` writes
@@ -354,22 +376,28 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather):
     big = 2**30
     i32, i64 = torch.int32, torch.int64
 
-    def plan(c, x0_p, act0, movable0):
+    def plan(c, x0_p, act0, movable0, face_fn=None):
         addr = c["addr"]
         dev = x0_p.device
         cap_n = x0_p.shape[0]
-        ok = addr.ok()
-        x_now = gather(c["xs"], d, addr)
-        v_now = gather(c["vs"], d, addr)
+        ok = addr.ok()[:cap_n]
+        x_now = gather(c["xs"], d, addr)[:cap_n]
+        v_now = gather(c["vs"], d, addr)[:cap_n]
         speed_p = torch.sqrt(torch.sum(v_now * v_now, dim=1))
         move_p = (1.2 * dt * sort_every) * speed_p
         dd = x_now - x0_p
         drift_p = torch.sqrt(torch.sum(dd * dd, dim=1))
-        ci0, _ = neighbors.cell_index(x0_p, act0, grid)
+        ci0, _ = neighbors.cell_index(x0_p, act0, grid, ci_off)
+        if ci_off is not None:
+            ci0 = ci0 + device_const(tuple(ci_off), i32, dev)  # global bins
         lo = device_const(grid.lo, x0_p.dtype, dev)
         lo_c = lo[None, :] + ci0.to(x0_p.dtype) * grid.cell
         margin_p = torch.amin(
             torch.minimum(x_now - lo_c, lo_c + grid.cell - x_now), dim=1)
+        allowed = None
+        if face_fn is not None:
+            face_m, allowed = face_fn(x_now)
+            margin_p = torch.minimum(margin_p, face_m)
         risky = (movable0 & ok & (margin_p < move_p)
                  & (drift_p + move_p > budget))
         n_risky = torch.sum(risky, dtype=i32)
@@ -386,7 +414,7 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather):
         old_pos = addr.pos[pid_s]
 
         # target cell of each mover = the bin of its CURRENT position
-        ci_m, _ = neighbors.cell_index(x_m, vm, grid)
+        ci_m, _ = neighbors.cell_index(x_m, vm, grid, ci_off)
         if d == 3:
             code_m = (ci_m[:, 0] + 1) * sg.h1 + (ci_m[:, 1] + 1)
         else:
@@ -430,6 +458,8 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather):
 
         can = ((n_risky <= repair_k) & (n_risky > 0)
                & ~torch.any(vm & ((new_row == 0) | ~placeable)))
+        if allowed is not None:
+            can = can & ~torch.any(risky & ~allowed)
         return dict(can=can, n_risky=n_risky, pids=pids, vm=vm, x_m=x_m,
                     old_row=old_row, old_pos=old_pos,
                     new_row=new_row, new_pos=new_pos)
@@ -535,6 +565,7 @@ class _SlotPhysics:
             (device_const(tuple(ff.pos), f32, device).reshape(1, d, 1), ff)
             for ff in scene.force_fields
         ]
+        self.zrow = torch.zeros((sg.c_rows, 3 - d, sg.lanes), device=device)
 
     def body_forces(self, xs, vs, rho_s, f_s, step0, i: int):
         """Gravity, wall penalty and force fields at step `step0 + i`."""
@@ -585,6 +616,21 @@ class _SlotPhysics:
                  for a, r in enumerate(rows)]
         return torch.cat(parts + [cx[None, None, :].expand(shape)], dim=1)
 
+    def feat_builder(self, c):
+        """The kernels' per-step feature view of the carry's xs/vs (the
+        pad and flag columns are fixed for the block); bf16: relative to
+        the slot centers of the carry's addressing."""
+        if self.params.precision == "bf16":
+            return self.bf16_feat_builder(c["addr"])
+        mov = c["movb"].to(torch.float32)
+        tail = torch.cat([mov, torch.zeros_like(mov)], dim=1)
+        zrow = self.zrow
+
+        def mk_feat(xs_, vs_):
+            return torch.cat([xs_, zrow, vs_, zrow, tail], dim=1)
+
+        return mk_feat
+
     def bf16_feat_builder(self, addr):
         """The kernels' per-step bf16 view of the slot state: positions
         relative to the slot centers, velocities absolute, rounded to bf16
@@ -613,12 +659,21 @@ class _SlotPhysics:
 
 
 def _slot_steps(sp: _SlotPhysics, c, sort_every: int, half2: float,
-                use_mem: bool, grid, leap: bool, mk_feat):
+                use_mem: bool, grid, leap: bool, mk_feat, exchange=None,
+                rp_hook=None, ci_offset=None, beyond=None):
     """`sort_every` steps integrated in slot space from the carry `c`
     (xs, vs, acc, x0s, movb, addr, ...), with the per-step drift audit.
     Returns (xs, vs, acc, rp, violations) — the count a device scalar.
     The leapfrog block-top kick uses `c["acc"]` (zeros on a fresh carry,
-    whose kick was pre-applied in particle space)."""
+    whose kick was pre-applied in particle space).
+
+    The hooks of a slab (`decomp._SlabSlots`, whose carries hold an acc):
+    `exchange(xs, vs)` writes the ghost slots in place after each step's
+    drift, except at step 0 of a carry marked `drifted` (its kick, drift
+    and exchange came before its build); `rp_hook(rp)` writes the ghosts'
+    (rho, p) into K1's rp before K2; the membership audit places the
+    slab-local lattice by `ci_offset` and keeps the strict budget where
+    `beyond(xs)`."""
     params, d = sp.params, sp.d
     dt = params.dt
     addr, sg, movb = c["addr"], sp.sg, c["movb"]
@@ -626,15 +681,23 @@ def _slot_steps(sp: _SlotPhysics, c, sort_every: int, half2: float,
     xs, vs, acc_s, x0s = c["xs"], c["vs"], c["acc"], c["x0s"]
     step0 = c["step0"]
     jb = c["jb"]
-    rp = c["rp"]
     viol = None
     for i in range(sort_every):
-        if leap:
-            if acc_s is not None:
-                vs = vs + (0.5 * dt) * acc_s * mov
-            xs = xs + dt * vs * mov
+        if i or not c.get("drifted"):
+            if leap:
+                if acc_s is not None:
+                    vs = vs + (0.5 * dt) * acc_s * mov
+                xs = xs + dt * vs * mov
+            if exchange is not None:
+                if i == 0 and not leap:
+                    # nothing has written xs/vs yet, and the exchange
+                    # writes in place: not into the carry's own arrays
+                    xs, vs = xs.clone(), vs.clone()
+                exchange(xs, vs)
         feat = mk_feat(xs, vs)
         rp = pallas_step._call_density(feat, addr, sg, params, jb)
+        if rp_hook is not None:
+            rp_hook(rp)
         f_s = pallas_step._call_force(feat, rp, addr, sg, params, jb)
         rho_s = rp[:, 0:1, :]
         f_tot = sp.body_forces(xs, vs, rho_s, f_s[:, 0:d, :], step0, i)
@@ -651,10 +714,30 @@ def _slot_steps(sp: _SlotPhysics, c, sort_every: int, half2: float,
         drift2 = torch.sum(dd * dd, dim=1, keepdim=True)
         bad_i = (drift2 > half2) & movb
         if use_mem:
-            bad_i = _membership_bad(bad_i, xs, c["refs"], grid)
+            bad_i = _membership_bad(bad_i, xs, c["refs"], grid, ci_offset,
+                                    None if beyond is None else beyond(xs))
         n_bad = torch.sum(bad_i, dtype=torch.int32)
         viol = n_bad if viol is None else viol + n_bad
     return xs, vs, acc_s, rp, viol
+
+
+def _scatter_residency(x, v, act, movable, grid, sg, use_mem: bool,
+                       ci_offset=None) -> dict:
+    """Addressing and scatter of (x, v) into slot residency, 7 scatter
+    columns x | v | movable; `ci_offset` places a slab-local lattice."""
+    d = x.shape[1]
+    addr = pallas_step.build_addr(x, act, grid, sg, ci_offset)
+    zpad = x.new_zeros((x.shape[0], 3 - d))
+    rows = torch.cat([x, zpad, v, zpad, movable[:, None].to(torch.float32)],
+                     dim=1)
+    feat = pallas_step.scatter_slots(addr, rows, sg)
+    xs = feat[:, 0:d, :]
+    return dict(
+        addr=addr, xs=xs, vs=feat[:, 3:3 + d, :], x0s=xs,
+        movb=feat[:, 6:7, :] > 0,
+        refs=_slot_bin_refs(addr, sg) if use_mem else None,
+        jb=pallas_step._jblocks(addr, sg) if sg.packed else None,
+    )
 
 
 def _residency(s: State, grid, sg, d: int, dt: float, leap: bool,
@@ -665,42 +748,40 @@ def _residency(s: State, grid, sg, d: int, dt: float, leap: bool,
     scattered; the 7 scatter columns are x | v_half | movable."""
     act0 = s.active
     movable0 = act0 & (s.kind == 0)
-    addr = pallas_step.build_addr(s.x, act0, grid, sg)
     movf = movable0[:, None].to(torch.float32)
     v_in = s.v + (0.5 * dt) * s.acc * movf if leap else s.v
-    zpad = s.x.new_zeros((s.capacity, 3 - d))
-    rows = torch.cat([s.x, zpad, v_in, zpad, movf], dim=1)
-    feat = pallas_step.scatter_slots(addr, rows, sg)
-    xs = feat[:, 0:d, :]
-    return dict(
-        addr=addr, feat=feat, xs=xs, vs=feat[:, 3:3 + d, :], x0s=xs,
-        movb=feat[:, 6:7, :] > 0,
-        refs=_slot_bin_refs(addr, sg) if use_mem else None,
-        jb=pallas_step._jblocks(addr, sg) if sg.packed else None,
-        step0=s.step,
-    )
+    return dict(_scatter_residency(s.x, v_in, act0, movable0, grid, sg,
+                                   use_mem), step0=s.step)
+
+
+def _read_back(sp: _SlotPhysics, c, x, v, acc, rho, p, act0, movable0):
+    """Slots → the (x, v, acc, rho, p) of the first len(x) particles of
+    the carry's addressing (a slab's ghosts after them are not read);
+    particles without a slot keep the values passed in."""
+    n, addr, d = x.shape[0], c["addr"], sp.d
+    ok = addr.ok()[:n]
+    okc = ok[:, None]
+    row = torch.where(ok, addr.row_pos[:n], 0).long()
+    pos = torch.where(ok, addr.pos[:n], 0).long()
+
+    def gather(slot, ncomp):
+        return slot[row, :ncomp, pos]
+
+    rho_p = torch.where(ok & act0, gather(c["rp"], 1)[:, 0], rho)
+    return (torch.where(okc, gather(c["xs"], d), x),
+            torch.where(okc, gather(c["vs"], d), v),
+            torch.where(okc & movable0[:, None], gather(c["acc"], d), acc),
+            rho_p,
+            torch.where(ok & act0, physics.eos_pressure(rho_p, sp.params), p))
 
 
 def _materialize(sp: _SlotPhysics, c, s: State, step) -> State:
     """Slots → particle State (non-slotted particles keep the values of
     `s`, the state the residency was entered from)."""
-    addr, d, gather = c["addr"], sp.d, sp.gather
     act0 = s.active
-    movable0 = act0 & (s.kind == 0)
-    ok = addr.ok()
-    okc = ok[:, None]
-    rho_p = torch.where(ok & act0, gather(c["rp"], 1, addr)[:, 0], s.rho)
-    return State(
-        x=torch.where(okc, gather(c["xs"], d, addr), s.x),
-        v=torch.where(okc, gather(c["vs"], d, addr), s.v),
-        acc=torch.where(okc & movable0[:, None], gather(c["acc"], d, addr),
-                        s.acc),
-        rho=rho_p,
-        p=torch.where(ok & act0, physics.eos_pressure(rho_p, sp.params), s.p),
-        kind=s.kind,
-        emit_step=s.emit_step,
-        step=step,
-    )
+    x, v, acc, rho, p = _read_back(sp, c, s.x, s.v, s.acc, s.rho, s.p, act0,
+                                   act0 & (s.kind == 0))
+    return s.replace(x=x, v=v, acc=acc, rho=rho, p=p, step=step)
 
 
 def _make_resident_advance(
@@ -746,19 +827,10 @@ def _make_resident_advance(
         for _ in range(blocks):
             FETCHES["blocks"] += 1
             c = _residency(s, grid, sg, d, dt, leap, use_mem)
-            if params.precision == "bf16":
-                mk_feat = sp.bf16_feat_builder(c["addr"])
-            else:
-                feat0 = c["feat"]
-                pad = feat0[:, d:3, :] * 0.0
-                tail = feat0[:, 6:, :]
-
-                def mk_feat(xs_, vs_):  # pad + flag columns never change
-                    return torch.cat([xs_, pad, vs_, pad, tail], dim=1)
-
-            c.update(acc=None, rp=None)
+            c["acc"] = None
             xs, vs, a_s, rp, viol_blk = _slot_steps(
-                sp, c, sort_every, half2, use_mem, grid, leap, mk_feat)
+                sp, c, sort_every, half2, use_mem, grid, leap,
+                sp.feat_builder(c))
             viol_blk = viol_blk + c["addr"].overflow
             c.update(xs=xs, vs=vs, acc=a_s, rp=rp)
             out = _materialize(sp, c, s, s.step + sort_every)
@@ -847,7 +919,6 @@ def _make_resident_auto_advance(
     dev = resolve_device(device)
     sp = _SlotPhysics(scene, grid, sg, dev)
     exact_step = make_step(scene, "pallas", device=dev)  # heal: bare grid
-    zrow = torch.zeros((sg.c_rows, 3 - d, sg.lanes), device=dev)
     if packed_scatter:
         # background: x halves unpack far (≈ the 1e18 empty sentinel), v
         # and the movable flag 0
@@ -891,7 +962,6 @@ def _make_resident_auto_advance(
             c = residency_packed(s)
         else:
             c = _residency(s, grid, sg, d, dt, leap, use_mem)
-            del c["feat"]
         c.update(acc=torch.zeros_like(c["xs"]),
                  rp=c["xs"].new_zeros((sg.c_rows, 2, sg.lanes)),
                  shadow=s, build_step=s.step, pend_over=c["addr"].overflow,
@@ -903,20 +973,6 @@ def _make_resident_auto_advance(
         if not c["live"]:
             return s
         return _materialize(sp, c, s, s.step)
-
-    def mk_feat_for(c):
-        """The kernels' per-step feature view of the carry's xs/vs (the
-        pad and flag columns are fixed for the block); bf16: relative to
-        the slot centers of the carry's addressing."""
-        if params.precision == "bf16":
-            return sp.bf16_feat_builder(c["addr"])
-        mov = c["movb"].to(torch.float32)
-        tail = torch.cat([mov, torch.zeros_like(mov)], dim=1)
-
-        def mk_feat(xs_, vs_):
-            return torch.cat([xs_, zrow, vs_, zrow, tail], dim=1)
-
-        return mk_feat
 
     def need_of(c):
         """(need, activated) device bools of the block that starts from `c`."""
@@ -986,7 +1042,8 @@ def _make_resident_auto_advance(
                     rebuilds += 1
             c["step0"] = c["shadow"].step
             xs, vs, acc_s, rp, viol_blk = _slot_steps(
-                sp, c, sort_every, half2, use_mem, grid, leap, mk_feat_for(c))
+                sp, c, sort_every, half2, use_mem, grid, leap,
+                sp.feat_builder(c))
             if c["pend_over"] is not None:
                 viol_blk = viol_blk + c["pend_over"]
             ok_carry = {
@@ -1570,18 +1627,22 @@ def run(
     through `make_advance`; `run` passes them on, and the prime and the
     exact re-runs keep the default layout, as there).
 
-    shards=N: per-step slabs along `shard_axis` across the N ranks of the
+    shards=N: slabs along `shard_axis` across the N ranks of the
     initialized `torch.distributed` process group (as under `torchrun
     --nproc-per-node N`), each on `device` (default `cuda:LOCAL_RANK`):
     the state is sharded once, advanced with
-    `decomp.make_audited_spatial_advance`, re-specced from the gathered
-    state when the flow outgrows the static buffers, and the GLOBAL state
-    is returned on every rank (and passed to `frame_callback` after each
-    dispatch).  Its capacity is n × the local capacity and its particle
-    order follows slab ownership.  `packed_rows` is ignored there, with a
-    notice, as in the reference; `adaptive_cap`, `membership_audit` and
-    `repair_k` (knobs of the fast path) are not read."""
-    _check_slice(method, shards=shards, sort_every=sort_every)
+    `decomp.make_audited_spatial_advance` (per-step slabs, or with
+    `sort_every > 1` the slab fast path: its spec sized for the Verlet
+    skin, `slot_resident` the auto-rebuild resident blocks with heal,
+    repair and demotion, `membership_audit` and `repair_k` as on one
+    device), re-specced from the gathered state when the flow outgrows the
+    static buffers, and the GLOBAL state is returned on every rank (and
+    passed to `frame_callback` after each dispatch).  Its capacity is n ×
+    the local capacity and its particle order follows slab ownership.
+    `steps_per_dispatch` and the remainder follow the single-device rules
+    above.  `packed_rows` is ignored there, with a notice, as in the
+    reference; `adaptive_cap` is not read."""
+    _check_slice(method, shards=shards)
     if shards and not isinstance(shards, int):
         (shards,) = shards
     if shards:
@@ -1609,8 +1670,11 @@ def run(
             # packed rows are single-device only; slabs use the slot layout
             print("sph_tpu_torch: packed_rows is single-chip only; ignored "
                   "with shards (slot layout used)", file=sys.stderr)
-        return _run_decomposed(scene, n_steps, method, steps_per_dispatch,
-                               state, frame_callback, shards, shard_axis, dev)
+        return _run_decomposed(
+            scene, n_steps, method, steps_per_dispatch, state,
+            frame_callback, shards, shard_axis, dev, sort_every=sort_every,
+            slot_resident=slot_resident, membership_audit=membership_audit,
+            repair_k=repair_k)
     if sort_every > 1:
         steps_per_dispatch -= steps_per_dispatch % sort_every
         steps_per_dispatch = max(steps_per_dispatch, sort_every)
@@ -1645,39 +1709,56 @@ def _dist_ready(world: int) -> bool:
 
 
 def _run_decomposed(scene, n_steps, method, steps_per_dispatch, state,
-                    frame_callback, shards: int, shard_axis: int, dev):
-    """run(shards=N): shard once, advance with the audited per-step slab
-    path, re-spec elastically on static-cap outgrowth
+                    frame_callback, shards: int, shard_axis: int, dev,
+                    sort_every: int = 1, slot_resident: bool = False,
+                    membership_audit: bool = True, repair_k=None):
+    """run(shards=N): shard once, advance with the audited slab path,
+    re-spec elastically on static-cap outgrowth
     (`decomp.SpatialCapOverflow`, raised on every rank together), gather
     the global view for the callback and the return value.  Every rank
-    computes each spec from the same gathered arrays."""
+    computes each spec from the same gathered arrays.  The fast path's
+    spec sizes its ghost band for the Verlet skin; a remainder dispatch
+    keeps the fast path only when `sort_every` divides it."""
     from sph_tpu_torch import decomp
 
-    def build(st, spd):
-        spec = decomp.SpatialSpec.for_state(scene, st, shards,
-                                            axis=shard_axis)
-        loc = decomp.spatial_shard_state(st, scene, spec, dev)
-        return loc, decomp.make_audited_spatial_advance(scene, spec, method,
-                                                        spd)
+    if sort_every > 1:
+        if method != "pallas":
+            raise ValueError("sort_every > 1 requires method='pallas'")
+        steps_per_dispatch -= steps_per_dispatch % sort_every
+        steps_per_dispatch = max(steps_per_dispatch, sort_every)
+    skin = default_skin(scene, sort_every) if sort_every > 1 else 0.0
 
-    def advance_block(loc, adv, spd):
+    def build(st, spd, se, resident):
+        spec = decomp.SpatialSpec.for_state(scene, st, shards,
+                                            axis=shard_axis,
+                                            skin=skin if se > 1 else 0.0)
+        loc = decomp.spatial_shard_state(st, scene, spec, dev)
+        return loc, decomp.make_audited_spatial_advance(
+            scene, spec, method, spd, sort_every=se, slot_resident=resident,
+            membership_audit=membership_audit, repair_k=repair_k)
+
+    def advance_block(loc, adv, spd, se, resident):
         try:
             return adv(loc), adv
         except decomp.SpatialCapOverflow:
             # the flow outgrew the static buffers: re-size from the
             # dispatch's input and run it again
-            loc2, adv2 = build(decomp.spatial_gather_state(loc), spd)
+            loc2, adv2 = build(decomp.spatial_gather_state(loc), spd, se,
+                               resident)
             return adv2(loc2), adv2
 
     n_disp, rem = divmod(n_steps, steps_per_dispatch)
-    loc, adv = build(state, steps_per_dispatch)
+    loc, adv = build(state, steps_per_dispatch, sort_every, slot_resident)
     for _ in range(n_disp):
-        loc, adv = advance_block(loc, adv, steps_per_dispatch)
+        loc, adv = advance_block(loc, adv, steps_per_dispatch, sort_every,
+                                 slot_resident)
         if frame_callback is not None:
             frame_callback(decomp.spatial_gather_state(loc))
     if rem:
-        loc, adv = build(decomp.spatial_gather_state(loc), rem)
-        loc, adv = advance_block(loc, adv, rem)
+        se = sort_every if sort_every > 1 and rem % sort_every == 0 else 1
+        resident = slot_resident and se > 1
+        loc, adv = build(decomp.spatial_gather_state(loc), rem, se, resident)
+        loc, adv = advance_block(loc, adv, rem, se, resident)
         if frame_callback is not None:
             frame_callback(decomp.spatial_gather_state(loc))
     return decomp.spatial_gather_state(loc)

@@ -13,7 +13,11 @@ reference states for its own `run(shards=)` (tests/test_domain_decomp.py:
     run ends bit for bit where a run that never overflowed ends;
   * method="pallas" (K1/K2 through the split API on slab-local lattices,
     their plain versions here) conserves the particles and tracks the
-    single-device pallas run within 1e-4 of the position scale.
+    single-device pallas run within 1e-4 of the position scale;
+  * the slab fast path, `sort_every=4, slot_resident=True`, with dispatches
+    rounded down to 8 steps and a remainder that keeps the fast path (20 =
+    2·8 + 4) or runs per step (18 = 2·8 + 2), conserves and tracks the
+    single-device run of the same options within 1e-4 of the scale.
 """
 
 import numpy as np
@@ -74,5 +78,18 @@ def test_run_shards_pallas_tracks_single_device(results):
     assert int(r["m_step"]) == int(r["ref_step"]) == 6
     assert act.sum() == act_r.sum()
     xa, xb = _active_sorted("m", r), _active_sorted("ref", r)
+    scale = np.max(np.abs(xb)) + 1e-6
+    assert np.max(np.abs(xa - xb)) / scale < 1e-4
+
+
+@pytest.mark.parametrize("n", [20, 18])
+def test_run_shards_fast_path_tracks_single_device(results, n):
+    r = results["run_fast"]
+    assert int(r[f"m{n}_step"]) == int(r[f"ref{n}_step"]) == n
+    assert list(r[f"frames{n}"]) == [8, 16, n]
+    act = r[f"m{n}_emit_step"] <= n
+    act_r = r[f"ref{n}_emit_step"] <= n
+    assert act.sum() == act_r.sum()
+    xa, xb = _active_sorted(f"m{n}", r), _active_sorted(f"ref{n}", r)
     scale = np.max(np.abs(xb)) + 1e-6
     assert np.max(np.abs(xa - xb)) / scale < 1e-4

@@ -182,8 +182,9 @@ def test_wrappers_reject_malformed_slot_arrays():
                                 gc, 16, p)
 
 
-# What stays out around the ported paths: the slab fast path (reuse,
-# resident, repair across slabs) and pencils.
+# Pencils stay out; the slab fast path (reuse, resident, repair across
+# slabs) came with ROADMAP.md Queue 1 item 14.3 and now gets past the
+# option checks to the process-group check.
 OUT_OF_SLICE = {
     "slot_resident": lambda s: port.run(s, 4, "pallas", sort_every=4,
                                         slot_resident=True, shards=2,
@@ -200,9 +201,14 @@ OUT_OF_SLICE = {
 
 @pytest.mark.parametrize("option", sorted(OUT_OF_SLICE))
 def test_out_of_slice_options_raise(option):
-    item = "14.4" if option == "shards" else "14.3"
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
+    if option == "shards":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 14.4"):
+            OUT_OF_SLICE[option](_scene())
+        return
+    # the slab fast path's options are accepted: without a process group
+    # the run asks for one, as the per-step slabs do
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         OUT_OF_SLICE[option](_scene())
 
 

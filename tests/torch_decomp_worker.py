@@ -1,5 +1,6 @@
 """One rank of a gloo world for the decomposition tests
-(`test_torch_decomp_world.py`, `test_torch_decomp_run.py`).
+(`test_torch_decomp_world.py`, `test_torch_decomp_run.py`,
+`test_torch_decomp_fast.py`).
 
     python tests/torch_decomp_worker.py SUITE RANK WORLD STORE OUT
 
@@ -94,6 +95,77 @@ SPATIAL = {
 }
 
 RUN_SCENE = "tutorial2d"
+
+# The slab fast path (suite "fast"): the wide pool under leapfrog + Tait
+# (tests/test_domain_decomp.py `_wide_scene(integrator="leapfrog",
+# eos="tait")`), at one capacity, so that the reference's compiled
+# advances serve several of these scenes: they differ in their blocks only.
+LT = dict(integrator="leapfrog", eos="tait", capacity=1024)
+DART_FACE = 711.3     # 0.7 before the cell face at 712.0, inside slab 1's
+#                       interior [435.6, 764.4) for the whole run
+BAND_DART = 408.7     # 0.7 before the face at 409.4, in slab 1's low band
+
+
+def dart_pool(m, dart_x, **kw):
+    """The wide pool, a 410 px/s dart at (dart_x, 250) and a static buoy
+    line (tests/test_domain_decomp.py `_dart_pool_scene`): the dart's
+    projected move trips the membership predicate at cell faces while its
+    drift stays under skin/2."""
+    base = pool(m, **{**LT, **kw})
+    dart = m.Block(lo=(dart_x - 1.0, 249.0), hi=(dart_x + 1.0, 251.0),
+                   velocity=(410.0, 0.0))
+    buoys = m.Block(lo=(660.0, 96.0), hi=(790.0, 104.0), kind=1)
+    return m.calibrate(base.replace(blocks=base.blocks + (dart, buoys)))
+
+
+def fast_scene(m, name):
+    if name == "wide":
+        return pool(m, **LT)
+    if name == "migrate":
+        # a 250 px/s block that crosses the face at 400 within 100 steps
+        return pool(m, seed=63, block=((220.0, 20.0), (395.0, 150.0)),
+                    velocity=(250.0, 0.0), **LT)
+    if name == "jet":
+        # 4000 px/s: on four slabs every block outruns the skin (the
+        # reference's 2000 px/s jet does so on its eight)
+        return pool(m, velocity=(4000.0, 0.0), **LT)
+    if name == "one_rank":
+        # a jet inside slab 0 (over 12 steps it stays short of the band at
+        # 364.4) and a calm block in slabs 1 and 2
+        base = pool(m, block=((420.0, 20.0), (1000.0, 100.0)),
+                    velocity=(0.0, 0.0), **LT)
+        jet = m.Block(lo=(100.0, 20.0), hi=(300.0, 100.0),
+                      velocity=(4000.0, 0.0))
+        return m.calibrate(base.replace(blocks=base.blocks + (jet,)))
+    if name == "dart":
+        return dart_pool(m, DART_FACE)
+    if name == "band_dart":
+        return dart_pool(m, BAND_DART)
+    if name == "emit_repair":
+        base = dart_pool(m, DART_FACE)
+        return m.calibrate(base.replace(
+            emitters=(m.Emitter(pos=(300.0, 250.0), velocity=(0.0, -60.0),
+                                width=2, start_step=6, stop_step=7),),
+            capacity=1024 + 64))
+    if name == "emit":
+        return pool(m, seed=67, block=((100.0, 20.0), (400.0, 120.0)),
+                    emitters=(m.Emitter(pos=(800.0, 250.0),
+                                        velocity=(200.0, -150.0), width=2),),
+                    capacity=2048)
+    if name == "axis1":
+        return pool(m, seed=68, axis=1)
+    raise KeyError(name)
+
+
+# the scenes of one parameter set and capacity: one compiled reference
+# advance of each option set serves them all
+LT_SCENES = {"wide", "migrate", "jet", "dart", "band_dart"}
+# the slab axis of each fast-path scene (else 0); the specs come from
+# SpatialSpec.for_scene with balance 8, so cap_local is the capacity
+FAST_AXIS = {"axis1": 1}
+# steps a dispatch of the reference's shared advances: classic reuse and
+# resident blocks 24, auto-rebuild 32
+CLASSIC, AUTO = 24, 32
 
 
 def straddle(m):
@@ -244,6 +316,218 @@ def case_run_pallas(case: str) -> dict:
     return res
 
 
+# --- the slab fast path ----------------------------------------------------
+
+
+def _fast_start(name):
+    """(scene, spec, primed state, local state) of a fast-path scene."""
+    scene = fast_scene(port, name)
+    state = port.init(scene, device=CPU)
+    if scene.params.integrator == "leapfrog":
+        state = port.prime(scene, state, "pallas", device=CPU)
+    spec = decomp.SpatialSpec.for_scene(
+        scene, dist.get_world_size(), state.capacity,
+        axis=FAST_AXIS.get(name, 0), balance=8.0)
+    return scene, spec, state, decomp.spatial_shard_state(state, scene,
+                                                          spec, CPU)
+
+
+def _dispatches(adv, loc, n):
+    """n dispatches of `adv`; (loc, [worst, counters...] summed)."""
+    total = None
+    for _ in range(n):
+        res = adv(loc)
+        loc = res[0]
+        vals = np.array([int(t) for t in res[1:]], np.int64)
+        total = vals if total is None else total + vals
+    return loc, total
+
+
+def _gathered(prefix, loc) -> dict:
+    return {f"{prefix}_{k}": v
+            for k, v in _np(decomp.spatial_gather_state(loc)).items()}
+
+
+def _per_slab(loc):
+    return decomp.comm.all_gather(loc.active.sum().reshape(1)).numpy()
+
+
+def case_fast_reuse(case: str) -> dict:
+    """Classic reuse (24 steps) against the per-step slabs and, bitwise,
+    the slot-resident blocks."""
+    scene, spec, _, loc = _fast_start("wide")
+    kw = dict(steps_per_dispatch=CLASSIC, sort_every=4)
+    fast, c_f = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", **kw), loc, 1)
+    res, c_r = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", slot_resident=True, **kw), loc, 1)
+    ref, c_p = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", CLASSIC), loc, 1)
+    return {**_gathered("fast", fast), **_gathered("res", res),
+            **_gathered("per", ref), "counts": np.stack([c_f, c_r, c_p])}
+
+
+def case_fast_forced(case: str) -> dict:
+    """rebuild_frac=0 (a rebuild at every block) against the resident
+    blocks, 12 steps."""
+    scene, spec, _, loc = _fast_start("wide")
+    kw = dict(steps_per_dispatch=12, sort_every=4, slot_resident=True)
+    a, c_a = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", **kw), loc, 1)
+    b, c_b = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", auto_rebuild=True, rebuild_frac=0.0, **kw),
+        loc, 1)
+    return {**_gathered("res", a), **_gathered("auto", b),
+            "c_res": c_a, "c_auto": c_b}
+
+
+# case: (scene, dispatches, the auto-rebuild options) of each auto run
+AUTO_RUNS = {
+    "stretch": ("wide", 1, {}),
+    "reactive": ("wide", 1, dict(reactive_theta=0.7)),
+    "strict": ("wide", 1, dict(membership_audit=False)),
+    "migrate_auto": ("migrate", 5, {}),
+    "jet": ("jet", 1, {}),
+    "dart": ("dart", 2, {}),
+    "dart_repair": ("dart", 2, dict(repair_k=64)),
+    "band_dart": ("band_dart", 1, {}),
+    "band_dart_repair": ("band_dart", 1, dict(repair_k=64)),
+    # emitter activations force a rebuild on every rank
+    # (tests/test_domain_decomp.py `test_spatial_auto_emitters`)
+    "emit_auto": ("emit", 3, {}),
+}
+
+
+def case_fast_auto(case: str) -> dict:
+    name, n, opts = AUTO_RUNS[case]
+    scene, spec, state, loc = _fast_start(name)
+    before = _per_slab(loc)
+    out, counts = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", AUTO, sort_every=4, slot_resident=True,
+        auto_rebuild=True, **opts), loc, n)
+    res = {**_gathered("m", out), "counts": counts, "before": before,
+           "after": _per_slab(out), "n_start": int(state.n_active())}
+    if case in ("stretch", "dart"):
+        # the classic resident blocks over the same steps
+        cls, _ = _dispatches(decomp.make_spatial_advance(
+            scene, spec, "pallas", AUTO, sort_every=4, slot_resident=True),
+            loc, n)
+        res.update(_gathered("cls", cls))
+    return res
+
+
+def case_fast_heal(case: str) -> dict:
+    """A jet dispatch in which every block heals (12 steps), against the
+    per-step slabs; `one_rank`: the jet inside slab 0 alone, so that every
+    rank heals on the audit of rank 0's particles, and the group is usable
+    after (one file a rank)."""
+    scene, spec, _, loc = _fast_start("jet" if case == "heal"
+                                          else "one_rank")
+    out, counts = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", 12, sort_every=4, slot_resident=True,
+        auto_rebuild=True), loc, 1)
+    per, _ = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", 12), loc, 1)
+    if case == "heal":
+        return {**_gathered("m", out), **_gathered("per", per),
+                "counts": counts}
+    speed = torch.sqrt(torch.sum(loc.v * loc.v, dim=1))[loc.active]
+    same = all(torch.equal(getattr(out, k), getattr(per, k))
+               for k in ("x", "v", "rho", "p", "emit_step"))
+    after = decomp.comm.all_reduce_sum(torch.ones((), dtype=torch.int32))
+    return {"counts": counts, "bitwise_per_step": np.array(same),
+            "max_speed": float(speed.max()) if speed.numel() else 0.0,
+            "after": after.numpy()}
+
+
+def case_fast_classic(case: str) -> dict:
+    """Classic reuse, and the resident blocks over the same dispatches:
+    migration (6 dispatches), emitters (4) and axis 1 (1)."""
+    name, n = {"migrate": ("migrate", 6), "emit": ("emit", 4),
+               "axis1": ("axis1", 1)}[case]
+    scene, spec, state, loc = _fast_start(name)
+    before = _per_slab(loc)
+    kw = dict(steps_per_dispatch=CLASSIC, sort_every=4)
+    a, c_a = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", **kw), loc, n)
+    b, c_b = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", slot_resident=True, **kw), loc, n)
+    return {**_gathered("m", a), **_gathered("res", b), "c_cls": c_a,
+            "c_res": c_b, "before": before, "after": _per_slab(a),
+            "n_start": int(state.n_active())}
+
+
+def case_fast_emit_repair(case: str) -> dict:
+    """An emitter activation during the dispatch bypasses repair."""
+    scene, spec, state, loc = _fast_start("emit_repair")
+    kw = dict(sort_every=4, slot_resident=True, auto_rebuild=True)
+    b, c_b = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", 16, **kw), loc, 1)
+    r, c_r = _dispatches(decomp.make_spatial_advance(
+        scene, spec, "pallas", 16, repair_k=64, **kw), loc, 1)
+    return {**_gathered("b", b), **_gathered("r", r), "c_b": c_b,
+            "c_r": c_r, "n_start": int(state.n_active())}
+
+
+def case_fast_demote(case: str) -> dict:
+    """Constant-heal demotion of the audited advance on the jet, 12-step
+    dispatches, re-probing every 2 (the reference test's monkeypatch):
+    mode and cumulative heals after each of five dispatches, the jet
+    calmed (v = 0) before the fourth."""
+    from sph_tpu_torch import step as step_mod
+
+    scene, spec, state, loc = _fast_start("jet")
+    saved = step_mod.PERSTEP_REPROBE_EVERY
+    step_mod.PERSTEP_REPROBE_EVERY = 2
+    try:
+        adv = decomp.make_audited_spatial_advance(
+            scene, spec, steps_per_dispatch=12, sort_every=4,
+            slot_resident=True)
+        modes, heals = [adv.mode], [adv.healed]
+        for k in range(5):
+            if k == 3:
+                loc = loc.replace(v=loc.v * 0.0)
+            loc = adv(loc)
+            modes.append(adv.mode)
+            heals.append(adv.healed)
+    finally:
+        step_mod.PERSTEP_REPROBE_EVERY = saved
+    return {**_gathered("m", loc), "modes": np.array(modes),
+            "heals": np.array(heals), "n_start": int(state.n_active())}
+
+
+def case_fast_audited(case: str) -> dict:
+    """The audited advance's default on the slot-resident fast path."""
+    scene, spec, state, loc = _fast_start("wide")
+    adv = decomp.make_audited_spatial_advance(
+        scene, spec, steps_per_dispatch=16, sort_every=4, slot_resident=True)
+    out = adv(loc)
+    return {**_gathered("m", out), "n_start": int(state.n_active()),
+            "counts": np.array([adv.healed, adv.repaired, adv.rebuilds]),
+            "mode": np.array(adv.mode)}
+
+
+def case_run_fast(case: str) -> dict:
+    """run(shards=, sort_every=4, slot_resident=True) with a remainder
+    dispatch that keeps the fast path (20 = 2·8 + 4) and one that runs
+    per step (18 = 2·8 + 2), against the single-device runs."""
+    scene = port.preset(RUN_SCENE)
+    res = {}
+    for n in (20, 18):
+        kw = dict(method="pallas", steps_per_dispatch=9, sort_every=4,
+                  slot_resident=True, device=CPU)
+        frames = []
+        out = port.run(scene, n, shards=dist.get_world_size(),
+                       frame_callback=lambda s: frames.append(int(s.step)),
+                       **kw)
+        res.update({f"m{n}_{k}": v for k, v in _np(out).items()})
+        res[f"frames{n}"] = np.array(frames)
+        if dist.get_rank() == 0:
+            ref = port.run(scene, n, **kw)
+            res.update({f"ref{n}_{k}": v for k, v in _np(ref).items()})
+    return res
+
+
 SUITES = {
     "world": {
         **{c: case_dp for c in ("dp_euler", "dp_leapfrog", "dp_fields")},
@@ -255,9 +539,21 @@ SUITES = {
         "run_packed_rows": case_run_packed_rows,
         "run_elastic": case_run_elastic,
         "run_pallas": case_run_pallas,
+        "run_fast": case_run_fast,
+    },
+    "fast": {
+        "fast_reuse": case_fast_reuse,
+        "fast_forced": case_fast_forced,
+        **{c: case_fast_auto for c in AUTO_RUNS},
+        **{c: case_fast_classic for c in ("migrate", "emit", "axis1")},
+        "heal": case_fast_heal,
+        "one_rank": case_fast_heal,
+        "emit_repair": case_fast_emit_repair,
+        "demote": case_fast_demote,
+        "audited": case_fast_audited,
     },
 }
-PER_RANK = {"overflow"}
+PER_RANK = {"overflow", "one_rank"}
 
 
 def spawn(suite: str, world: int, out: Path) -> list:
