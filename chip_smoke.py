@@ -205,10 +205,41 @@ Phases, each printed as one JSON line:
               stays demoted on its re-probe, K1/K2 launched 8 times a
               block, and the first dispatch is bitwise the per-step slab
               advance from its input
+ 39. decomp_pencil  pencils, run(scene, n, method="pallas", shards=(1, 1))
+              in the one-rank NCCL world at dam3d_100k (200 steps) and
+              splash3d_1m (20), one dispatch: health, one spec, K1/K2
+              launched n + 1 times, against the single-device per-step run
+              slot by slot (the active count exactly, x within 1e-4 of
+              scale), whether it is bitwise the per-step run(shards=1)
+              slabs; host ms/step in turns with those slabs, device ms
+              and operations a step of a 12-step dispatch of each
+ 40. kernels  (with phase 33) K1 and K2 on rank (1, 1)'s pencil-local
+              lattice of a 2x2 dam3d_100k (`pc`: restricted along axes 0
+              and 2, ci_offset != 0 on both) with the ghosts of both
+              phases, corners by two hops: phase 33's checks, times, bound
+ 41. decomp_pencil_ranks  (in phase 34's four rank processes) run(
+              preset("dam3d_100k"), 100, method="pallas", shards=(2, 2),
+              steps_per_dispatch=50) with a frame_callback: frames at [50,
+              100], K1/K2 launched 101 times a rank, every rank's lattice
+              restricted on both cut axes and shifted where its grid
+              coordinate is not 0, one spec; against the single-device
+              per-step run by nearest neighbor: the active count exactly,
+              x within 1e-4 of scale; host ms/step a rank
+ 42. cli_shards  the command line's --shards under `python -m
+              torch.distributed.run --standalone`: run dam3d_100k --shards
+              1 on one process (--method auto, the slab fast path over
+              NCCL; the reference's decomposed keys, one line a frame,
+              PNGs that decode), run dam3d_100k --shards 2x2 on four
+              processes with --device cuda:0 (gloo; the pencil note, mesh
+              "2x2", one metrics.jsonl from rank 0, every process exits
+              0), record dam2d_10k --shards 2 on two (one APNG that
+              decodes), run dam2d_10k --shards 1x1 as a plain command
+              (a one-rank NCCL group of its own), and --shards 2x2 as one
+              process (exit 2, one line naming torchrun)
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
-Phases 31-32, 35-36 and 38 run in a one-rank NCCL process group made
+Phases 31-32, 35-36, 38 and 39 run in a one-rank NCCL process group made
 through a file store in a temporary directory.  Every path reads its launch counts
 through `read_counts`, which checks that
 no yardstick and no variant of a launch choice ran in it.  Any failed check
@@ -1896,6 +1927,123 @@ def phase_cli() -> None:
               "with no card the command stops with one line")
 
 
+def torchrun_cli(nproc: int, argv: list) -> tuple:
+    """(returncode, stdout, stderr, seconds) of `python -m
+    torch.distributed.run --standalone --nproc-per-node nproc -m
+    sph_tpu_torch.cli argv` from the checkout's root (its rendezvous on a
+    free port of localhost)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), "-m", "sph_tpu_torch.cli", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    return (res.returncode, res.stdout, res.stderr,
+            time.perf_counter() - t0)
+
+
+# the keys the decomposed loop writes a frame, as the reference's
+# (sph_tpu/cli.py:376-392): the single-device keys without the static-cap
+# audit (cap_dropped, row_overflow) and the CFL flag, plus shards (and
+# mesh for pencils)
+DECOMP_KEYS = {"frame", "step", "shards", "wall_s", "advance_mode",
+               "healed_blocks", "repaired_blocks"}
+
+
+def phase_cli_shards() -> None:
+    """Phase 42, the command line's --shards under torchrun on the card:
+    run dam3d_100k --shards 1 on one process (--method auto: the slab fast
+    path over NCCL, frames rendered); run dam3d_100k --shards 2x2 on four
+    processes on cuda:0 (gloo: pencils, the pencil note, mesh "2x2", one
+    metrics.jsonl from rank 0); record dam2d_10k --shards 2 on two
+    processes on cuda:0 (one APNG that decodes); run dam2d_10k --shards 1x1
+    as a plain command (a one-rank NCCL group of its own); and --shards
+    2x2 as one process (exit 2, one line naming torchrun)."""
+    import tempfile
+
+    from sph_tpu_torch.diagnostics import SCALARS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def go(nproc, argv):
+            rc, out, err, secs = torchrun_cli(nproc, argv)
+            emit({"phase": "cli_shards", "nproc": nproc, "argv": argv,
+                  "rc": rc, "seconds": secs, "stdout_tail": out[-400:],
+                  "stderr_tail": err[-1200:]})
+            check(rc == 0, f"torchrun --nproc-per-node {nproc} "
+                           f"{' '.join(argv)}: every process exits 0")
+            return out, err
+
+        def metrics(out: Path, frames: int, step: int, keys: set) -> list:
+            recs = [json.loads(ln) for ln in
+                    (out / "metrics.jsonl").read_text().splitlines()]
+            for r in recs:
+                check(set(r) == set(SCALARS) | keys and all(
+                    r[k] == r[k] and abs(r[k]) != float("inf")
+                    for k in SCALARS), f"the reference's keys, finite, in "
+                                       f"{out.name}")
+            check(len(recs) == frames and recs[-1]["step"] == step,
+                  f"one line a frame to step {step} in {out.name}")
+            emit({"phase": "cli_shards", "metrics": out.name,
+                  "last": recs[-1]})
+            return recs
+
+        slab = tmp / "slab"
+        _, err = go(1, ["run", "dam3d_100k", "--shards", "1", "--frames",
+                        "3", "--steps-per-frame", "40", "--render", "--out",
+                        str(slab), "--quiet"])
+        check("nccl backend" in err, "--shards 1 on the card runs NCCL")
+        recs = metrics(slab, 3, 120, DECOMP_KEYS)
+        check(all(r["shards"] == 1 and r["advance_mode"] == "resident"
+                  for r in recs), "the slab fast path on one rank")
+        sizes = [decode_png((slab / f"frame_{k:05d}.png").read_bytes())
+                 for k in range(3)]
+        check(sizes == [(400, 300)] * 3, "three 400x300 frames that decode")
+        pencil = tmp / "pencil"
+        _, err = go(4, ["run", "dam3d_100k", "--shards", "2x2", "--device",
+                        "cuda:0", "--frames", "2", "--steps-per-frame",
+                        "20", "--out", str(pencil), "--quiet"])
+        check(err.count("note: pencil decomposition steps per-step") == 1
+              and err.count("gloo backend") == 1,
+              "the pencil note and the backend line once, from rank 0")
+        recs = metrics(pencil, 2, 40, {"frame", "step", "shards", "mesh",
+                                       "wall_s"})
+        check(all(r["mesh"] == "2x2" and r["shards"] == 4 for r in recs),
+              "mesh 2x2 on four ranks")
+        check(sorted(p.name for p in pencil.iterdir()) == ["metrics.jsonl"],
+              "rank 0 alone writes, one metrics.jsonl")
+        movie = tmp / "movie.apng"
+        out, _ = go(2, ["record", "dam2d_10k", "--shards", "2", "--device",
+                        "cuda:0", "--frames", "4", "--steps-per-frame",
+                        "20", "--out", str(movie), "--quiet"])
+        chunks = png_chunks(movie.read_bytes())
+        actl = [p for t, p in chunks if t == b"acTL"]
+        check(len(actl) == 1 and struct.unpack(">I", actl[0][:4])[0] == 4
+              and sum(t == b"fcTL" for t, _ in chunks) == 4
+              and out.count("wrote") == 1,
+              "record --shards 2 wrote one 4-frame APNG, from rank 0")
+        # --shards 1x1 as a plain command: a one-rank group of its own
+        one = tmp / "one"
+        rc, _, err, secs = run_cli(["run", "dam2d_10k", "--shards", "1x1",
+                                    "--frames", "1", "--steps-per-frame",
+                                    "10", "--out", str(one), "--quiet"])
+        emit({"phase": "cli_shards", "argv": ["run", "dam2d_10k",
+                                              "--shards", "1x1"],
+              "rc": rc, "seconds": secs, "stderr_tail": err[-800:]})
+        check(rc == 0 and "nccl backend" in err,
+              "--shards 1x1 without torchrun runs in a one-rank NCCL group")
+        metrics(one, 1, 10, {"frame", "step", "shards", "mesh", "wall_s"})
+        rc, _, err, secs = run_cli(["run", "dam2d_10k", "--shards", "2x2",
+                                    "--out", str(tmp / "none")])
+        emit({"phase": "cli_shards", "argv": ["run", "dam2d_10k",
+                                              "--shards", "2x2"],
+              "rc": rc, "seconds": secs, "stderr_tail": err[-400:]})
+        check(rc == 2 and len(err.strip().splitlines()) == 1
+              and "torchrun --nproc-per-node 4" in err
+              and not (tmp / "none").exists(),
+              "--shards 2x2 as one process is one line of usage error")
+
+
 # ---------------------------------------------------------------------------
 # Domain decomposition (decomp.py on torch.distributed)
 # ---------------------------------------------------------------------------
@@ -1903,6 +2051,7 @@ def phase_cli() -> None:
 # steps each decomposed path is driven for
 DECOMP_STEPS = {"dam3d_100k": 200, "splash3d_1m": 20}
 RANKS, RANKS_STEPS = 4, 100
+PENCIL_RANKS = (2, 2)     # the pencil grid of the four ranks
 RANKS_FAST_SPD = 20       # the fast path's dispatches on the four ranks
 # The fast path's mid-dispatch branches on the four ranks.  A dart in the
 # dam3d_100k tank: one particle at 400 along z (0.64 a block, under skin/2
@@ -1934,23 +2083,25 @@ def process_group(backend: str, world: int, rank: int, store_dir):
 
 
 @contextlib.contextmanager
-def spec_builds():
-    """The SpatialSpec.for_state calls `run(shards=)` makes while the
-    block runs: one a dispatch plan, one more per elastic re-spec."""
+def spec_builds(kind: str = "SpatialSpec"):
+    """The SpatialSpec.for_state (or PencilSpec's) calls `run(shards=)`
+    makes while the block runs: one a dispatch plan, one more per elastic
+    re-spec."""
     from sph_tpu_torch import decomp
 
+    cls = getattr(decomp, kind)
     made = []
-    real = decomp.SpatialSpec.for_state
+    real = cls.for_state
 
     def spy(*args, **kw):
         made.append(real(*args, **kw))
         return made[-1]
 
-    decomp.SpatialSpec.for_state = staticmethod(spy)
+    cls.for_state = staticmethod(spy)
     try:
         yield made
     finally:
-        decomp.SpatialSpec.for_state = staticmethod(real)
+        cls.for_state = staticmethod(real)
 
 
 def agreement(a, b, n_start: int, same_order: bool) -> dict:
@@ -2146,6 +2297,75 @@ def phase_decomp_slab(name: str, dev) -> dict:
     for k in ("slot_density", "slot_force"):
         check(launches[k] == n_steps + 1,
               f"{k} launched {launches[k]} times on decomp_slab {name}")
+    return out
+
+
+def phase_decomp_pencil(name: str, dev) -> dict:
+    """run(..., method="pallas", shards=(1, 1)) over the one-rank NCCL
+    world at full width, one dispatch: a 1x1 pencil on the full lattice,
+    every phase of the pencil step run once per axis with nothing to send.
+    Health, one spec, K1/K2 launched n + 1 times; against the
+    single-device per-step run slot by slot (the active count exactly, x
+    within 1e-4 of scale) and, bit for bit or not, against the per-step
+    run(shards=1) slabs; host ms/step in turns with those slabs, device ms
+    and operations a step of a 12-step dispatch of each (profile)."""
+    from sph_tpu_torch import decomp, init, preset, prime, run
+
+    scene, n_steps = preset(name), DECOMP_STEPS[name]
+    s0 = init(scene, device=dev)
+    n_start = int(s0.n_active())
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with spec_builds("PencilSpec") as specs:
+        a = run(scene, n_steps, method="pallas", steps_per_dispatch=n_steps,
+                shards=(1, 1), state=s0, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(f"decomp_pencil {name}")
+    b = run(scene, n_steps, method="pallas", state=s0, device=dev)
+    agree = agreement(a, b, n_start, same_order=True)
+    c = run(scene, n_steps, method="pallas", steps_per_dispatch=n_steps,
+            shards=1, state=s0, device=dev)
+    vs_slabs = {k: bool(torch.equal(getattr(a, k), getattr(c, k)))
+                for k in ("x", "v", "acc", "rho", "p", "emit_step")}
+    hl = health(a, scene)
+    kinds = {"per-step shards=1": dict(shards=1),
+             "pencil shards=(1, 1)": dict(shards=(1, 1))}
+    turns = {k: [] for k in kinds}
+    for k in ("per-step shards=1", "pencil shards=(1, 1)",
+              "pencil shards=(1, 1)", "per-step shards=1"):
+        turns[k].append(timed_run(scene, s0, n_steps, dev,
+                                  steps_per_dispatch=n_steps, **kinds[k]))
+    n_prof = 12
+    sp = prime(scene, s0, "pallas", device=dev)
+    spec_p = decomp.PencilSpec.for_state(scene, sp, 1, 1)
+    loc_p = decomp.pencil_shard_state(sp, scene, spec_p, dev)
+    spec_s = decomp.SpatialSpec.for_state(scene, sp, 1)
+    loc_s = decomp.spatial_shard_state(sp, scene, spec_s, dev)
+    pencil = decomp.make_pencil_advance(scene, spec_p, "pallas", n_prof)
+    slab = decomp.make_spatial_advance(scene, spec_s, "pallas", n_prof)
+    prof = {"pencil shards=(1, 1)": profiled(lambda: pencil(loc_p), n_prof),
+            "per-step shards=1": profiled(lambda: slab(loc_s), n_prof)}
+    out = {"phase": "decomp_pencil", "preset": name, "world": 1,
+           "backend": "nccl", "steps": n_steps,
+           "spec": dataclasses.asdict(specs[0]), "spec_builds": len(specs),
+           **hl, "agreement": agree, "launches": launches,
+           "bitwise_per_step_slabs": vs_slabs,
+           "ms_per_step": wall / n_steps * 1e3,
+           "ms_per_step_turns": turns,
+           "ms_per_step_median": {k: statistics.median(v)
+                                  for k, v in turns.items()},
+           "ms_per_step_note": "host clock over run(), prime included, in "
+                               "turns (slabs, pencil, pencil, slabs)",
+           "profile": prof}
+    emit(out)
+    check_health(f"decomp_pencil {name}", hl, n_start, len(specs) - 1,
+                 (0.90, 1.10))
+    check_agreement(f"decomp_pencil {name}", agree)
+    for k in ("slot_density", "slot_force"):
+        check(launches[k] == n_steps + 1,
+              f"{k} launched {launches[k]} times on decomp_pencil {name}")
     return out
 
 
@@ -2454,11 +2674,53 @@ def decomp_rank_main(rank: int, world: int, tmp: str,
             if rank == 0:
                 np.savez(Path(tmp) / f"{key}.npz", **out.to_numpy())
         heal = heal_sequence(dev)
+        pencil = pencil_on_ranks(sph, scene, dev, rank, tmp)
     emit({"rank": rank, "frames": frames, "launches": launches,
           "ci_offsets": sorted(set(map(tuple, offsets))),
           "spec_builds": len(specs), "cap_local": specs[0].cap_local,
-          "ms_per_step": wall / RANKS_STEPS * 1e3, **runs, "heal": heal})
+          "ms_per_step": wall / RANKS_STEPS * 1e3, **runs, "heal": heal,
+          "pencil": pencil})
     return 0
+
+
+def pencil_on_ranks(sph, scene, dev, rank: int, tmp: str) -> dict:
+    """Phase 41 on this rank: run(scene, RANKS_STEPS, method="pallas",
+    shards=PENCIL_RANKS) in dispatches of RANKS_STEPS // 2 with a
+    frame_callback; this rank's numbers (rank 0 saves the gathered
+    state)."""
+    import numpy as np
+
+    from sph_tpu_torch import decomp
+
+    lattices = []
+    real = decomp._pencil_faces
+
+    def spy(*args):
+        faces, ci = real(*args)
+        lattices.append({"ci_offset": list(ci), "shape": list(args[2].shape)})
+        return faces, ci
+
+    decomp._pencil_faces = spy
+    frames = []
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with spec_builds("PencilSpec") as specs:
+            out = sph.run(scene, RANKS_STEPS, method="pallas",
+                          steps_per_dispatch=RANKS_STEPS // 2,
+                          shards=PENCIL_RANKS, device=dev,
+                          frame_callback=lambda s: frames.append(int(s.step)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        decomp._pencil_faces = real
+    if rank == 0:
+        np.savez(Path(tmp) / "pencil.npz", **out.to_numpy())
+    return {"frames": frames, "spec_builds": len(specs),
+            "spec": dataclasses.asdict(specs[0]),
+            "launches": read_counts(f"decomp_pencil_ranks rank {rank}"),
+            "lattices": lattices, "ms_per_step": wall / RANKS_STEPS * 1e3}
 
 
 def dart_scene():
@@ -2559,6 +2821,8 @@ def phase_decomp_ranks(dev) -> dict:
                                   device=dev)
         a_emit = State.from_numpy(dict(np.load(Path(tmp) / "emit.npz")),
                                   device=dev)
+        a_pencil = State.from_numpy(dict(np.load(Path(tmp) / "pencil.npz")),
+                                    device=dev)
     agree = agreement(a, b, n_start, same_order=False)
     agree_fast = agreement(a_fast, b_fast, n_start, same_order=False)
     agree_dart = agreement(a_dart, b_dart, n_start + 1, same_order=False)
@@ -2634,28 +2898,67 @@ def phase_decomp_ranks(dev) -> dict:
     check_health("decomp_ranks emit", hl_emit, n_emit, 0,
                   vmax_limit=3.0 * scene_e.params.sound_speed)
     check_agreement("decomp_ranks emit", agree_emit)
+    check_pencil_ranks(ranks, a_pencil, b, scene, n_start)
     return {"ranks": ranks, "agreement": agree, "agreement_fast": agree_fast,
             "agreement_dart": agree_dart, "agreement_emit": agree_emit}
+
+
+def check_pencil_ranks(ranks: list, a, b, scene, n_start: int) -> None:
+    """Phase 41: the 2x2 pencil run of the four rank processes: frames
+    after each dispatch, one spec (the same on every rank), K1/K2
+    launched RANKS_STEPS + 1 times a rank, each rank's lattice restricted
+    on both cut axes and shifted on each axis where its grid coordinate is
+    not 0; the gathered state's health and, against the single-device
+    per-step run `b`, the active count exactly and x within 1e-4 of
+    scale by nearest neighbor."""
+    from sph_tpu_torch import neighbors
+
+    agree = agreement(a, b, n_start, same_order=False)
+    hl = health(a, scene)
+    full = neighbors.GridSpec.for_scene(scene).shape
+    per_rank = [{"rank": r["rank"], **r["pencil"]} for r in ranks]
+    emit({"phase": "decomp_pencil_ranks", "preset": "dam3d_100k",
+          "world": RANKS, "grid": list(PENCIL_RANKS), "backend": "gloo",
+          "device": "cuda:0", "steps": RANKS_STEPS, "full_grid": list(full),
+          "ranks": per_rank, **hl, "agreement": agree,
+          "note": "host ms/step of each rank, prime included; four "
+                  "processes share one card and stage every exchange "
+                  "through host memory (gloo)"})
+    for p in per_rank:
+        where = f"pencil rank {p['rank']}"
+        spec = p["spec"]
+        check(p["frames"] == [RANKS_STEPS // 2, RANKS_STEPS],
+              f"frame_callback after each dispatch on {where}")
+        check(p["spec_builds"] == 1 and spec == per_rank[0]["spec"],
+              f"one spec, the same on every rank, on {where}")
+        for k in ("slot_density", "slot_force"):
+            check(p["launches"][k] == RANKS_STEPS + 1,
+                  f"{k} launched {p['launches'][k]} times on {where}")
+        i = divmod(p["rank"], PENCIL_RANKS[1])
+        for lat in p["lattices"]:
+            for k, ax in enumerate((spec["axis1"], spec["axis2"])):
+                check(lat["shape"][ax] < full[ax],
+                      f"the lattice restricted on axis {ax} on {where}")
+                check((lat["ci_offset"][ax] > 0) == (i[k] > 0),
+                      f"the lattice shifted on axis {ax} iff the rank's "
+                      f"coordinate is not 0, on {where}")
+    check_health("decomp_pencil_ranks", hl, n_start, 0, (0.90, 1.10))
+    check_agreement("decomp_pencil_ranks", agree)
 
 
 def phase_kernels_slab(dev, skin: float = 0.0) -> dict:
     """K1 and K2 on rank 1's slab-local lattice of a RANKS-slab
     dam3d_100k at step 0: the step's concatenation of locals and the
     ghosts both neighbors send (their faces' particles), K2 on rp from
-    scatter_rp with the ghosts' rho/p as their owners compute it (the
+    scatter_rp with the ghosts' rho/p as their owners compute them (the
     single-device K1).  Bitwise their simple yardsticks, phase 3's
     tolerances against the plain versions, times and bound.  With `skin`
     (phase 37): the fast path's skinned slab lattice, its ghosts the
     auto-rebuild path's 2·(h + skin)-deep bands."""
-    import numpy as np
-
-    from sph_tpu_torch import decomp, init, neighbors, pallas_step as ps
-    from sph_tpu_torch import physics, preset
-    from sph_tpu_torch import slot_kernels as sk
+    from sph_tpu_torch import decomp, init, neighbors, preset
 
     scene = preset("dam3d_100k")
     params = scene.params
-    d = params.dim
     s0 = init(scene, device=dev)
     spec = decomp.SpatialSpec.for_state(scene, s0, RANKS, skin=skin)
     slabs = decomp.spatial_slabs(s0, spec)
@@ -2671,47 +2974,140 @@ def phase_kernels_slab(dev, skin: float = 0.0) -> dict:
         lattice = "slab-local, rank 1 of 4"
     geo = [decomp._slab_geometry(scene, spec, grid, r, skin)
            for r in (0, 1, 2)]
-    # the single-device rho/p: what each ghost's owner computes for it
-    full = neighbors.GridSpec.for_scene(scene)
-    rho_g, p_g, _ = ps.pallas_rho_p_f(s0.x, s0.v, s0.active, params, full)
+    local = part_tensors(s0, slabs, decomp._slab_of(s0.x.cpu().numpy(),
+                                                    spec), spec.cap_local,
+                         dev)
+    parts = []
+    for r, face in ((0, "hi"), (2, "lo")):      # what ranks 0 and 2 send
+        lo, hi = geo[r][0], geo[r][1]
+        parts.append(face_ghosts(local(r), 0, lo, hi, face, band,
+                                 spec.cap_ghost))
+    return kernels_on_lattice(dev, scene, s0, grid, geo[1][2], local(1),
+                              parts, lattice, {"ghost_band": band})
 
-    # each slab's slots: its live particles in order (their global
-    # indices), then pads
-    x0 = s0.x.cpu().numpy()
-    owner = decomp._slab_of(x0, spec)
+
+def phase_kernels_pencil(dev) -> dict:
+    """K1 and K2 on rank (1, 1)'s pencil-local lattice of a 2x2
+    dam3d_100k at step 0 (`pc`): restricted along axes 0 and 2, with the
+    ghosts of both phases, the axis-1 ghosts rank (0, 1) sends and the
+    axis-2 ghosts rank (1, 0) sends from its locals and its own axis-1
+    ghosts of rank (0, 0) (the corner, by two hops).  The checks, times and
+    bound of phase 33."""
+    from sph_tpu_torch import decomp, init, neighbors, preset
+
+    scene = preset("dam3d_100k")
+    h = scene.params.h
+    s0 = init(scene, device=dev)
+    spec = decomp.PencilSpec.for_state(scene, s0, *PENCIL_RANKS)
+    a1, a2, cap = spec.axis1, spec.axis2, spec.cap_ghost
+    grid = neighbors.GridSpec.for_pencil(scene, {a1: spec.w1, a2: spec.w2})
+    local = part_tensors(
+        s0, decomp.pencil_parts(s0, spec),
+        decomp._pencil_of(s0.x.cpu().numpy(), a1, spec.lo1, spec.w1,
+                          spec.n1, a2, spec.lo2, spec.w2, spec.n2),
+        spec.cap_local, dev)
+    # each pencil's faces (lo, hi, k_dev) along (axis 1, axis 2)
+    faces = {r: [decomp._faces(scene, grid, ax, lo, w, i)
+                 for ax, lo, w, i in zip((a1, a2), (spec.lo1, spec.lo2),
+                                         (spec.w1, spec.w2),
+                                         divmod(r, spec.n2))]
+             for r in range(spec.n1 * spec.n2)}
+
+    def hi_ghosts(src, r, k):
+        return face_ghosts(src, (a1, a2)[k], *faces[r][k][:2], "hi", h, cap)
+
+    def none():
+        d = scene.params.dim
+        return (torch.full((cap, d), 1e18, device=dev),
+                torch.zeros((cap, d), device=dev),
+                torch.zeros(cap, dtype=torch.bool, device=dev),
+                torch.zeros(cap, dtype=torch.int64, device=dev))
+
+    # rank (1, 0): its locals and the axis-1 ghosts rank (0, 0) sends
+    g1_10 = hi_ghosts(local(0), 0, 0)
+    comb_10 = tuple(torch.cat([a, b]) for a, b in zip(local(2), g1_10))
+    g1 = hi_ghosts(local(1), 1, 0)          # from rank (0, 1)
+    g2 = hi_ghosts(comb_10, 2, 1)           # from rank (1, 0), corners too
+    # corner ghosts: the axis-2 ghosts that were (0, 0)'s axis-1 ghosts
+    corner = int((g2[2] & torch.isin(g2[3], g1_10[3][g1_10[2]])).sum())
+    check(corner > 0, "corner ghosts reach rank (1, 1) by two hops")
+    ci = [0] * scene.params.dim
+    ci[a1], ci[a2] = faces[3][0][2], faces[3][1][2]
+    # the step's order: the axis-1 ghosts from the left and the right,
+    # then the axis-2 ones (rank (1, 1) has no right neighbor on either)
+    return kernels_on_lattice(
+        dev, scene, s0, grid, tuple(ci), local(3), [g1, none(), g2, none()],
+        "pencil-local (pc), rank (1, 1) of 2x2",
+        {"ghost_band": h, "axes": [a1, a2], "corner_ghosts": corner})
+
+
+def part_tensors(s0, parts, owner, cap_local: int, dev):
+    """r → (x, v, active, global index) of part r's slots: its live
+    particles in order (their indices in s0), then pads."""
+    import numpy as np
+
+    from sph_tpu_torch import decomp
+
     live = s0.emit_step.cpu().numpy() != int(decomp.INACTIVE)
 
     def tensors(r):
-        gi = np.zeros(spec.cap_local, np.int64)
+        gi = np.zeros(cap_local, np.int64)
         sel = np.nonzero(live & (owner == r))[0]
         gi[: len(sel)] = sel
-        return (torch.as_tensor(slabs[r]["x"], device=dev),
-                torch.as_tensor(slabs[r]["v"], device=dev),
-                torch.as_tensor(slabs[r]["emit_step"] <= 0, device=dev),
+        return (torch.as_tensor(parts[r]["x"], device=dev),
+                torch.as_tensor(parts[r]["v"], device=dev),
+                torch.as_tensor(parts[r]["emit_step"] <= 0, device=dev),
                 torch.as_tensor(gi, device=dev))
 
-    parts, ghost_rp = [], []
-    for r, face in ((0, "hi"), (2, "lo")):      # what ranks 0 and 2 send
-        x, v, act, gi = tensors(r)
-        lo, hi = geo[r][0], geo[r][1]
-        near = act & ((x[:, 0] >= float(hi - np.float32(band)))
-                      if face == "hi"
-                      else (x[:, 0] < float(lo + np.float32(band))))
-        idx, val, over = decomp._pack_idx(near, spec.cap_ghost)
-        check(int(over) == 0, "the ghost buffers hold the faces")
-        parts.append((
-            torch.where(val[:, None], decomp._gather_rows(x, idx), 1e18),
+    return tensors
+
+
+def face_ghosts(src, axis: int, lo, hi, face: str, band: float,
+                cap: int):
+    """The ghosts a rank with slots `src` = (x, v, active, global index)
+    sends across its `face` ("lo" or "hi") of `axis`: the active slots
+    within `band` of it, compacted as the step compacts them (x 1e18, v
+    0 and index 0 past the selection)."""
+    import numpy as np
+
+    from sph_tpu_torch import decomp
+
+    x, v, act, gi = src
+    near = act & ((x[:, axis] >= float(hi - np.float32(band)))
+                  if face == "hi"
+                  else (x[:, axis] < float(lo + np.float32(band))))
+    idx, val, over = decomp._pack_idx(near, cap)
+    check(int(over) == 0, "the ghost buffers hold the faces")
+    return (torch.where(val[:, None], decomp._gather_rows(x, idx), 1e18),
             torch.where(val[:, None], decomp._gather_rows(v, idx), 0.0),
-            val))
-        # the ghosts' rho/p as their owner computes them
-        g = gi[torch.clamp(idx, max=spec.cap_local - 1)]
-        ghost_rp.append((torch.where(val, rho_g[g], 1.0),
-                         torch.where(val, p_g[g], 0.0)))
-    x1, v1, a1, gi1 = tensors(1)
+            val, torch.where(val, gi[torch.clamp(idx, max=x.shape[0] - 1)],
+                             0))
+
+
+def kernels_on_lattice(dev, scene, s0, grid, ci, local, parts,
+                       lattice: str, extra: dict) -> dict:
+    """K1 and K2 on a rank-local lattice (`grid`, `ci`) of dam3d_100k at
+    step 0: the rank's slots `local` = (x, v, active, global index), then
+    the ghost `parts` it received, each (x, v, valid, global index), K2
+    on rp from scatter_rp with the ghosts' rho/p as their owners compute
+    them (the single-device K1).  Bitwise their simple yardsticks, phase
+    3's tolerances against the plain versions, the locals' rho against
+    the single-device K1, times and bound."""
+    from sph_tpu_torch import neighbors, pallas_step as ps
+    from sph_tpu_torch import physics
+    from sph_tpu_torch import slot_kernels as sk
+
+    params = scene.params
+    d = params.dim
+    # the single-device rho/p: what each ghost's owner computes for it
+    full = neighbors.GridSpec.for_scene(scene)
+    rho_g, p_g, _ = ps.pallas_rho_p_f(s0.x, s0.v, s0.active, params, full)
+    ghost_rp = [(torch.where(g[2], rho_g[g[3]], 1.0),
+                 torch.where(g[2], p_g[g[3]], 0.0)) for g in parts]
+    x1, v1, a1, gi1 = local
     cx = torch.cat([x1] + [g[0] for g in parts])
     cv = torch.cat([v1] + [g[1] for g in parts])
     c_act = torch.cat([a1] + [g[2] for g in parts])
-    ci = geo[1][2]
     ctx = ps.pallas_split_build(cx, cv, c_act, params, grid, ci)
     sg, addr, feat = ctx.sg, ctx.addr, ctx.feat
     args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params)
@@ -2724,11 +3120,12 @@ def phase_kernels_slab(dev, skin: float = 0.0) -> dict:
     rho_p, _ = ps._gather_rho(rp_p, addr, sg, params)
     check(bool(torch.allclose(rho_k, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)),
           f"K1 vs plain at {where}")
-    # the locals' rho is exact on the slab lattice: it is the global one
-    nl = spec.cap_local
+    # the locals' rho is exact on the rank's lattice: it is the global one
+    nl = x1.shape[0]
     check(bool(torch.allclose(rho_k[:nl][a1], rho_g[gi1][a1],
                               rtol=RHO_RTOL, atol=RHO_ATOL)),
-          f"the locals' slab K1 rho vs the single-device K1 at {where}")
+          f"the locals' rank-local K1 rho vs the single-device K1 at "
+          f"{where}")
     # K1's own EOS p (what the single-device K2 reads) against PyTorch's
     # EOS of K1's rho (what the slab step re-imports through scatter_rp)
     lane_p = (addr.row_pos.long() * 2 + 1) * sg.lanes + addr.pos.long()
@@ -2771,8 +3168,8 @@ def phase_kernels_slab(dev, skin: float = 0.0) -> dict:
                      **in_turns(kern, simple), "plain_ms": cuda_ms(plain),
                      "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "kernels", "preset": "dam3d_100k",
-          "lattice": lattice, "ghost_band": band, "ci_offset": list(ci),
-          "slab_grid": list(grid.shape), "full_grid": list(full.shape),
+          "lattice": lattice, **extra, "ci_offset": list(ci),
+          "rank_grid": list(grid.shape), "full_grid": list(full.shape),
           "feat": list(feat.shape), "n_occ": int(addr.n_occ[0]),
           "particles": int(ok.sum()), "ghosts": int(sum(int(g[2].sum())
                                                          for g in parts)),
@@ -2998,11 +3395,16 @@ def main() -> int:
                      for p in ("dam3d_100k", "splash3d_1m")}
         classic = phase_decomp_classic(dev)
         heal1 = phase_decomp_heal(dev)
+        # this slice: pencils, and the command line's --shards
+        pencil_runs = {p: phase_decomp_pencil(p, dev)
+                       for p in ("dam3d_100k", "splash3d_1m")}
     at_slab = phase_kernels_slab(dev)
     at_slab_skin = phase_kernels_slab(
         dev, skin=sph.default_skin(sph.preset("dam3d_100k"),
                                    RESIDENT["sort_every"]))
+    at_pencil = phase_kernels_pencil(dev)
     ranks = phase_decomp_ranks(dev)
+    phase_cli_shards()
 
     def resident(name):
         return {"resident4auto": {
@@ -3041,6 +3443,9 @@ def main() -> int:
             "at_slab_skinned": {
                 "lattice": "skinned slab-local (sort_every=4), rank 1 of 4, "
                            "dam3d_100k", **at_slab_skin[name]},
+            "at_pencil": {
+                "lattice": "pencil-local (pc), rank (1, 1) of 2x2, "
+                           "dam3d_100k", **at_pencil[name]},
             "decomposed": {
                 **{f"decomp_slab {p}": decomp_runs[p]["launches"][name]
                    for p in ("dam3d_100k", "splash3d_1m")},
@@ -3053,7 +3458,11 @@ def main() -> int:
                 **{f"decomp_ranks fast rank {r['rank']}":
                    r["fast"]["launches"][name] for r in ranks["ranks"]},
                 **{f"decomp_ranks jet rank {r['rank']}":
-                   r["heal"]["launches"][name] for r in ranks["ranks"]}},
+                   r["heal"]["launches"][name] for r in ranks["ranks"]},
+                **{f"decomp_pencil {p}": pencil_runs[p]["launches"][name]
+                   for p in ("dam3d_100k", "splash3d_1m")},
+                **{f"decomp_pencil_ranks rank {r['rank']}":
+                   r["pencil"]["launches"][name] for r in ranks["ranks"]}},
         })
         bname = f"{name}_bf16"
         kernels.append({

@@ -16,9 +16,10 @@ policy (`adaptive_cap=True`) — the production default,
 `scatter_slots(staged=True)`; checkpoints, diagnostics and `spawn`; the
 renderer and the native frame encoder; the command line, `python -m
 sph_tpu_torch.cli run|record|presets`; domain decomposition on
-`torch.distributed` (`decomp.py`: the particle-DP step and per-step slabs,
-`run(scene, n, shards=N)` in an N-rank process group).  See ROADMAP.md for
-what follows (the slab fast path, pencils, the CLI's `--shards`).
+`torch.distributed` (`decomp.py`: the particle-DP step, slabs per step and
+on the fast path, pencils; `run(scene, n, shards=N)` or `shards=(n1, n2)`
+in a process group of that many ranks, and the command line's `--shards`
+under `torchrun`).  See ROADMAP.md for what follows.
 """
 
 from sph_tpu_torch.diagnostics import load_checkpoint, save_checkpoint

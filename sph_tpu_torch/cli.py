@@ -13,18 +13,32 @@ and defaults are the reference's.  The device is `--device` (default
 `cuda`): with no card the command exits non-zero with one line, and it
 never carries on on the CPU unless `--device cpu` asks for it.
 Contradictory flags exit 2 with one line before the device is touched.
-The decomposed run (`--shards`) exits 2: the library's `run(shards=N)`
-runs per-step slabs under `torchrun`, and the command line's default
-`--method auto` is the slab fast path, not ported yet; the
-reference's `bench` subcommand drives a JAX benchmark folder and has no
-counterpart here.
+The reference's `bench` subcommand drives a JAX benchmark folder and has
+no counterpart here.
+
+A decomposed run or record (`--shards N` slabs, `--shards N1xN2` pencils)
+is one process per rank:
+
+    torchrun --nproc-per-node 4 -m sph_tpu_torch.cli run dam3d_100k --shards 2x2
+
+(`--shards 1` also runs as a plain command, in a one-rank group of its
+own).  Devices and backend: `--device cuda` puts each rank on
+`cuda:LOCAL_RANK` over NCCL; `--device cuda:K` puts every rank on card K,
+over gloo when the machine runs more than one rank (NCCL takes one rank a
+card), the computation staying on the card; `--device cpu` runs gloo.
+Every rank takes part in every collective; only rank 0 writes
+`metrics.jsonl`, frames, checkpoints and the APNG, prints the per-frame
+line, and reads the `--interact` file, whose commands it broadcasts to
+the others once a frame.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import re
 import sys
 import time
 
@@ -184,11 +198,6 @@ def _validate_fastpath_flags(args) -> None:
     on the resident fast path, so these fire only on explicitly
     contradictory flags.  The --debug path ignores the reuse knobs by
     design (it prints a note), so it skips them here."""
-    if args.shards:
-        raise _UsageError(
-            "--shards: the command line's decomposed run is not ported yet "
-            "(ROADMAP.md Queue 1 item 14.5); the library runs slabs, the "
-            "fast path included, with run(shards=N) under torchrun")
     rk = args.repair_k if args.repair_k is not None else 0
     if rk < 0:
         raise _UsageError("--repair-k must be >= 0")
@@ -253,6 +262,316 @@ def _audited(args, scene, spf: int, device):
     )
 
 
+# ---------------------------------------------------------------------------
+# Decomposed runs: one process per rank, under torchrun
+# ---------------------------------------------------------------------------
+
+
+def _lead() -> bool:
+    """This process is rank 0, the one that writes and prints."""
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def _note(msg: str) -> None:
+    if _lead():
+        print(msg, file=sys.stderr)
+
+
+def _rank_device(arg: str):
+    """(this rank's device, the process group's backend) by the rule of
+    the module docstring.  Raises RuntimeError (one line) when the card
+    asked for is not there."""
+    import torch
+
+    if arg == "cpu":
+        return torch.device("cpu"), "gloo"
+    dev = resolve_device(arg)
+    backend = "nccl"
+    if dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    elif int(os.environ.get("LOCAL_WORLD_SIZE", "1")) > 1:
+        backend = "gloo"
+    if dev.index >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"sph-tpu-torch: rank {os.environ.get('RANK', '0')} needs {dev}, "
+            f"this machine has {torch.cuda.device_count()} card(s); run "
+            f"fewer ranks a machine or pin one card with --device cuda:K")
+    return dev, backend
+
+
+def _decomposed(args) -> int:
+    """`run|record --shards`: check the launch against the rank count, pick
+    this rank's device and backend, join the process group (torchrun's
+    env://, or a one-rank group of its own for `--shards 1` alone) and run
+    the command in it; the group is destroyed on the way out."""
+    import torch
+    import torch.distributed as dist
+
+    n_total = math.prod(args.shards)
+    desc = "x".join(str(d) for d in args.shards)
+    world = os.environ.get("WORLD_SIZE")
+    if int(world or 1) != n_total:
+        launched = ("as one process" if world is None
+                    else f"with {world} processes")
+        print(f"--shards {desc} needs {n_total} ranks, one process each, "
+              f"and was started {launched}: launch it with `torchrun "
+              f"--nproc-per-node {n_total} -m sph_tpu_torch.cli ...`",
+              file=sys.stderr)
+        return 2
+    try:
+        device, backend = _rank_device(args.device)
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if world is None:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    else:
+        dist.init_process_group(backend, init_method="env://")
+    try:
+        _note(f"sph-tpu-torch: --shards {desc} on {n_total} rank(s), "
+              f"{backend} backend, rank 0 on {device}")
+        return args.fn(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _decomp_setup(args, scene, device):
+    """Shared by `run --shards` and `record --shards`: validate the flag
+    set (a _UsageError, the same on every rank) and return (build,
+    mesh_desc, n_total), where build(sc, st) -> (loc, adv) shards st
+    over the ranks and makes the audited advance.  Pencils
+    downgrade --sort-every/--resident/--repair-k to per step, with a
+    note."""
+    from sph_tpu_torch import decomp
+    from sph_tpu_torch.step import default_skin
+
+    dims = args.shards
+    pencil = len(dims) == 2
+    n_total = math.prod(dims)
+    mesh_desc = "x".join(str(d) for d in dims)
+    if getattr(args, "debug", False):
+        raise _UsageError("--debug is not supported with --shards")
+    if pencil and (args.sort_every > 1 or args.resident or args.repair_k):
+        # the pencil path steps per step (slabs carry the fast path);
+        # --method auto lands here too, downgraded with a note
+        _note("note: pencil decomposition steps per-step; "
+              "--sort-every/--resident/--repair-k are ignored")
+        args.sort_every, args.resident, args.repair_k = 1, False, 0
+    if args.sort_every > 1 and args.method != "pallas":
+        raise _UsageError("--sort-every>1 requires --method pallas")
+    if pencil:
+        # resolve the default here so a collision with the default second
+        # axis is a usage error, not a traceback out of build()
+        if args.shard_axis2 is None:
+            args.shard_axis2 = scene.params.dim - 1
+        if args.shard_axis2 == args.shard_axis:
+            raise _UsageError("--shard-axis2 must differ from --shard-axis")
+    if args.adaptive_cap:
+        _note("note: --adaptive-cap is single-chip only; ignored with "
+              "--shards")
+    if args.packed_rows != "auto":
+        # the packed-row layout is single-device only; decomposed sparse
+        # scenes run the slot layout
+        _note("note: --packed-rows is single-chip only; ignored with "
+              "--shards (slot layout used)")
+    spf = _spf(args)
+    skin = default_skin(scene, args.sort_every) if args.sort_every > 1 else 0.0
+
+    def build(sc, st):
+        if pencil:
+            spec = decomp.PencilSpec.for_state(
+                sc, st, dims[0], dims[1], axis1=args.shard_axis,
+                axis2=args.shard_axis2)
+            return (decomp.pencil_shard_state(st, sc, spec, device),
+                    decomp.make_audited_pencil_advance(sc, spec, args.method,
+                                                       spf))
+        spec = decomp.SpatialSpec.for_state(sc, st, n_total,
+                                            axis=args.shard_axis, skin=skin)
+        return (decomp.spatial_shard_state(st, sc, spec, device),
+                decomp.make_audited_spatial_advance(
+                    sc, spec, args.method, spf, sort_every=args.sort_every,
+                    slot_resident=args.resident,
+                    membership_audit=not args.strict_audit,
+                    repair_k=args.repair_k))
+
+    return build, mesh_desc, n_total
+
+
+def _advance_elastic(adv, loc, build, scene):
+    """One dispatch; a SpatialCapOverflow (the flow outgrew the static
+    buffers, raised on every rank together) re-specs from the gathered
+    state and runs the dispatch again.  Returns (loc, adv)."""
+    from sph_tpu_torch import decomp
+
+    try:
+        return adv(loc), adv
+    except decomp.SpatialCapOverflow as e:
+        _note(f"elastic recovery: {e}")
+        loc, adv = build(scene, decomp.spatial_gather_state(loc))
+        return adv(loc), adv
+
+
+def _shared_commands(interactor, scene, step_now: int):
+    """Rank 0 polls the --interact file (waiting out a pause) and
+    broadcasts (scene, changed, events) to every rank, so that all of them
+    fold the same commands at the same frame."""
+    import torch.distributed as dist
+
+    msg = [None, None, None]
+    if interactor is not None:
+        scene, changed = interactor.poll(scene, step_now)
+        while interactor.paused:
+            time.sleep(0.2)
+            scene, ch2 = interactor.poll(scene, step_now)
+            changed = changed or ch2
+        msg = [scene, changed, interactor.take_events()]
+    dist.broadcast_object_list(msg, src=0)
+    return msg
+
+
+def _run_spatial(args, scene, state, device) -> int:
+    """`run --shards N` (slabs) or `--shards N1xN2` (pencils): the
+    audited decomposed advance with elastic recovery (a re-spec from the
+    gathered state when the flow outgrows the static buffers); a frame is
+    one dispatch and one gather."""
+    from sph_tpu_torch import decomp
+
+    try:
+        build, mesh_desc, n_total = _decomp_setup(args, scene, device)
+    except _UsageError as e:
+        _note(str(e))
+        return 2
+    pencil = len(args.shards) == 2
+    lead = _lead()
+    loc, adv = build(scene, state)
+    watchdog = diagnostics.Watchdog(scene.params)
+    interactor = (_Interactor(args.interact) if args.interact and lead
+                  else None)
+    metrics_path = os.path.join(args.out, "metrics.jsonl")
+    t0 = time.perf_counter()
+    mf = open(metrics_path, "a") if lead else None
+    try:
+        for frame in range(args.frames):
+            if args.interact:
+                scene, changed, events = _shared_commands(
+                    interactor, scene, int(loc.step))
+                if changed or events:
+                    # one gather, every command folded in file order, one
+                    # re-spec: build() sizes the caps from the final
+                    # occupancy and spawned particles go to the rank that
+                    # owns their position
+                    st_g = decomp.spatial_gather_state(loc)
+                    mutated = changed
+                    for kind_, req in events:
+                        if kind_ == "reset":
+                            st_g = _fresh_state(scene, args.method, device)
+                            mutated = True
+                            _note("interact: scene reset")
+                            continue
+                        try:
+                            st_g, k = spawn_particles(st_g, scene, **req)
+                        except ValueError as e:
+                            _note(f"interact: spawn ignored ({e})")
+                            continue
+                        mutated = mutated or k > 0
+                        _note(f"interact: spawned {k} particles "
+                              f"@ {req['pos']}")
+                    if mutated:
+                        loc, adv = build(scene, st_g)
+            loc, adv = _advance_elastic(adv, loc, build, scene)
+            view = decomp.spatial_gather_state(loc)
+            pack = diagnostics.scalar_pack(view, scene.params)
+            if args.render and lead:
+                render.save_frame(
+                    view, scene,
+                    os.path.join(args.out, f"frame_{frame:05d}.png"),
+                    width=args.width, height=args.height, mode=args.mode,
+                    radius=args.radius,
+                )
+            try:
+                # every rank checks the same gathered view, so all of them
+                # stop at the same frame
+                scalars = watchdog.check(pack)
+            except diagnostics.SimulationDiverged as e:
+                if lead:
+                    dump = os.path.join(args.out, "diverged_state.npz")
+                    diagnostics.save_checkpoint(dump, view, scene)
+                    print(f"DIVERGED at frame {frame}: {e}; state -> {dump}",
+                          file=sys.stderr)
+                return 2
+            if not lead:
+                continue
+            scalars["frame"] = frame
+            scalars["step"] = int(loc.step)
+            scalars["shards"] = n_total
+            if pencil:
+                scalars["mesh"] = mesh_desc
+            scalars["wall_s"] = time.perf_counter() - t0
+            if hasattr(adv, "mode"):
+                scalars["advance_mode"] = adv.mode
+            if hasattr(adv, "healed"):
+                scalars["healed_blocks"] = adv.healed
+                scalars["repaired_blocks"] = getattr(adv, "repaired", 0)
+            mf.write(json.dumps(scalars) + "\n")
+            mf.flush()
+            if args.checkpoint_every and (frame + 1) % args.checkpoint_every == 0:
+                diagnostics.save_checkpoint(
+                    os.path.join(args.out, f"ckpt_{frame:05d}.npz"),
+                    view, scene,
+                )
+            if not args.quiet:
+                print(
+                    f"frame {frame:4d} step {int(loc.step):7d} "
+                    f"n={int(scalars['n_active'])} "
+                    f"max|v|={scalars['max_speed']:8.2f} "
+                    f"rho={scalars['mean_rho']:8.2f} "
+                    f"shards={mesh_desc} "
+                    f"({scalars['wall_s']:.1f}s)"
+                )
+    finally:
+        if mf is not None:
+            mf.close()
+    return 0
+
+
+def _record_spatial(args, scene, state, device) -> int:
+    """`record --shards ...`: advance decomposed, gather each frame, and
+    rank 0 renders the global view; the same audited advance and elastic
+    recovery as run."""
+    from sph_tpu_torch import decomp
+
+    try:
+        build, mesh_desc, _ = _decomp_setup(args, scene, device)
+    except _UsageError as e:
+        _note(str(e))
+        return 2
+    lead = _lead()
+    loc, adv = build(scene, state)
+    fields = []
+    t0 = time.time()
+    for frame in range(args.frames):
+        loc, adv = _advance_elastic(adv, loc, build, scene)
+        view = decomp.spatial_gather_state(loc)
+        if not lead:
+            continue
+        fields.append(render.render_splat(
+            view, scene, args.width, args.height, args.mode,
+            radius=args.radius,
+        ).cpu().numpy())
+        if not args.quiet:
+            print(f"frame {frame} shards={mesh_desc} "
+                  f"({time.time()-t0:.1f}s)", flush=True)
+    if lead:
+        render.save_apng(args.out, fields, fps=args.fps)
+        print(f"wrote {args.out} ({len(fields)} frames)")
+    return 0
+
+
 def cmd_run(args, device) -> int:
     scene = _load_scene(args.preset)
     if args.resume:
@@ -260,6 +579,8 @@ def cmd_run(args, device) -> int:
     else:
         state = _fresh_state(scene, args.method, device)
     os.makedirs(args.out, exist_ok=True)
+    if args.shards:
+        return _run_spatial(args, scene, state, device)
     spf = _spf(args)
     if args.debug:
         # sanitizer-style stepping: the checked step raises at the first
@@ -406,6 +727,8 @@ def cmd_record(args, device) -> int:
     """Frames rendered on the device → one animated PNG."""
     scene = _load_scene(args.preset)
     state = _fresh_state(scene, args.method, device)
+    if args.shards:
+        return _record_spatial(args, scene, state, device)
     adv = _audited(args, scene, _spf(args), device)
     fields = []
     t0 = time.time()
@@ -420,6 +743,13 @@ def cmd_record(args, device) -> int:
     render.save_apng(args.out, fields, fps=args.fps)
     print(f"wrote {args.out} ({len(fields)} frames)")
     return 0
+
+
+def _device_arg(text: str) -> str:
+    if re.fullmatch(r"cpu|cuda(:\d+)?", text):
+        return text
+    raise argparse.ArgumentTypeError(
+        f"invalid device {text!r} (cuda, cuda:K or cpu)")
 
 
 def _add_common(p, frames: int, spf: int, out: str) -> None:
@@ -468,15 +798,17 @@ def _add_common(p, frames: int, spf: int, out: str) -> None:
                         "rebuild predicate)")
     p.add_argument("--shards", type=_parse_shards, default=None,
                    help="domain decomposition: N = spatial slabs, N1xN2 = "
-                        "2-axis pencils (0 = single device); not ported "
-                        "yet")
+                        "2-axis pencils (0 = single device); one process "
+                        "a rank, under torchrun --nproc-per-node N")
     p.add_argument("--shard-axis", type=int, default=0,
                    help="domain axis the slabs cut / first pencil axis")
     p.add_argument("--shard-axis2", type=int, default=None,
-                   help="second pencil cut axis (with --shards N1xN2)")
+                   help="second pencil cut axis (with --shards N1xN2; "
+                        "default: the last domain axis)")
     p.add_argument("--quiet", action="store_true")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="cuda (default; exits when there is no card) or "
+    p.add_argument("--device", default="cuda", type=_device_arg,
+                   help="cuda (default; exits when there is no card; with "
+                        "--shards each rank on cuda:LOCAL_RANK), cuda:K, or "
                         "cpu (the kernels' plain PyTorch versions)")
 
 
@@ -519,6 +851,8 @@ def main(argv=None) -> int:
     except _UsageError as e:
         print(str(e), file=sys.stderr)
         return 2
+    if args.shards:
+        return _decomposed(args)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

@@ -11,6 +11,12 @@ over the default process group, one process per rank:
   all_reduce_sum (`psum`)
   rank           (`axis_index`)
 
+The slabs' ring is the whole world in rank order.  Pencils run on an
+n1 × n2 grid of the same ranks (`RankGrid`, row-major as `mesh2d` orders
+its devices: rank = i1·n2 + i2), with one ring along each axis; the
+gathers and sums stay over the whole world, so a gathered state is in the
+reference's row-major (i1, i2) order.
+
 The backend follows the device: NCCL for tensors on the card, gloo for the
 CPU.  Four ranks on one card run gloo (NCCL will not put two ranks on one
 GPU); gloo's transport takes host tensors, so with CUDA tensors each of
@@ -55,13 +61,42 @@ def _host_transport(t: torch.Tensor) -> bool:
     return t.device.type != "cpu" and dist.get_backend() == "gloo"
 
 
-def ring_exchange(to_left: torch.Tensor, to_right: torch.Tensor):
-    """Send `to_left` to rank − 1 and `to_right` to rank + 1 (a ring), in
-    one batch of point-to-point calls; returns (from_right, from_left): what
-    rank + 1 sent left and what rank − 1 sent right.  Every rank's buffers
+class RankGrid:
+    """The world's ranks as an n1 × n2 grid, row-major: rank r sits at
+    divmod(r, n2).  `peers(axis)` are this rank's (left, right) ring
+    neighbors along grid axis 0 or 1, wrapping around."""
+
+    def __init__(self, n1: int, n2: int):
+        if n1 * n2 != world_size():
+            raise ValueError(
+                f"a {n1}x{n2} rank grid needs {n1 * n2} ranks, the process "
+                f"group has {world_size()}")
+        self.n1, self.n2 = n1, n2
+
+    def coords(self) -> tuple[int, int]:
+        """This rank's (i1, i2)."""
+        return divmod(rank(), self.n2)
+
+    def peers(self, axis: int) -> tuple[int, int]:
+        i1, i2 = self.coords()
+        if axis == 0:
+            return (((i1 - 1) % self.n1) * self.n2 + i2,
+                    ((i1 + 1) % self.n1) * self.n2 + i2)
+        return (i1 * self.n2 + (i2 - 1) % self.n2,
+                i1 * self.n2 + (i2 + 1) % self.n2)
+
+
+def ring_exchange(to_left: torch.Tensor, to_right: torch.Tensor,
+                  peers: tuple[int, int] | None = None):
+    """Send `to_left` to the left neighbor and `to_right` to the right one,
+    in one batch of point-to-point calls; returns (from_right, from_left):
+    what the right neighbor sent left and what the left one sent right.
+    `peers` = (left, right) ranks (a ring along one axis of a `RankGrid`);
+    None is the world's ring, rank − 1 and rank + 1.  Every rank's buffers
     have one shape.  A ring of one is a local copy."""
     n, r = world_size(), rank()
-    if n == 1:
+    left, right = peers if peers is not None else ((r - 1) % n, (r + 1) % n)
+    if left == right == r:
         return to_left.clone(), to_right.clone()
     dev = to_left.device
     host = _host_transport(to_left)
@@ -69,7 +104,6 @@ def ring_exchange(to_left: torch.Tensor, to_right: torch.Tensor):
     if host:
         send_l, send_r = send_l.cpu(), send_r.cpu()
     from_right, from_left = torch.empty_like(send_l), torch.empty_like(send_r)
-    left, right = (r - 1) % n, (r + 1) % n
     # the tags keep the two directions apart where left == right (n = 2)
     ops = [
         dist.P2POp(dist.isend, send_l, left, tag=0),

@@ -1,6 +1,6 @@
 """Domain decomposition on `torch.distributed` (port of
-`sph_tpu/decomp.py`: the particle-DP step, the per-step slabs and the slab
-fast path).
+`sph_tpu/decomp.py`: the particle-DP step, the per-step slabs, the slab
+fast path and the pencils).
 
 One process per rank (SPMD): rank r holds only its own part of the state,
 as `State` tensors of `[cap_local, ...]`, exactly the reference's row r of
@@ -47,10 +47,18 @@ ranks, so every rank takes it.
    `make_audited_spatial_advance` re-runs a violating dispatch exactly on
    the per-step slabs and demotes a flow that heals every block.
 
+4. `make_pencil_advance`, pencils: the domain cut along two axes into
+   n1 × n2 parts on a `comm.RankGrid` of the ranks, a ring along each
+   axis.  The slab step's phases run once per cut axis, axis 1 then axis
+   2 (`_make_local` with two faces): the axis-2 ghosts are selected from
+   the locals and the fresh axis-1 ghosts, so corner ghosts arrive by two
+   hops; the (rho, p) re-import forwards the phase-1-corrected values in
+   phase 2; migration inserts along axis 1, then runs axis 2 over the
+   updated arrays.  Per step only, as in the reference.
+
 Compactions are padded and stay on the device (no `nonzero`): a selected
 row past a buffer's capacity is counted as overflow, and the overflow
-counts are summed over ranks once per dispatch.  Pencils come with
-ROADMAP.md Queue 1 item 14.4.
+counts are summed over ranks once per dispatch.
 """
 
 from __future__ import annotations
@@ -283,9 +291,14 @@ def _gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                        torch.zeros((), dtype=t.dtype, device=t.device))
 
 
+def _part(xa: np.ndarray, lo: float, w: float, n: int) -> np.ndarray:
+    """The part (0..n−1) of each coordinate `xa` in n parts of width w
+    from lo, the outer ones open-ended."""
+    return np.clip(((xa - lo) // w).astype(int), 0, n - 1)
+
+
 def _slab_of(x: np.ndarray, spec: SpatialSpec) -> np.ndarray:
-    return np.clip(((x[:, spec.axis] - spec.slab_lo) // spec.slab_w)
-                   .astype(int), 0, spec.n_shards - 1)
+    return _part(x[:, spec.axis], spec.slab_lo, spec.slab_w, spec.n_shards)
 
 
 def spatial_slabs(state, spec: SpatialSpec) -> list[dict]:
@@ -294,19 +307,27 @@ def spatial_slabs(state, spec: SpatialSpec) -> list[dict]:
     scheduled to activate: pending emitter slots go to the slab of their
     spawn position) in their order, then pads parked at −1e6 with
     emit_step INACTIVE and rho 1."""
+    return _split(state, lambda x: _slab_of(x, spec), spec.n_shards,
+                  spec.cap_local, "slab")
+
+
+def _split(state, owner_of, n_parts: int, cap_local: int,
+           what: str) -> list[dict]:
+    """`state`'s live slots by part, `owner_of(x)` the part of each slot,
+    each part padded to `cap_local` (`spatial_slabs`)."""
     x = _host(state.x)
+    owner = owner_of(x)
     live = _host(state.emit_step) != int(INACTIVE)
-    slab = _slab_of(x, spec)
     fields = {k: _host(getattr(state, k)) for k in _ARRAYS}
     park = x.min(axis=0) * 0 + np.float32(-1e6)
     out = []
-    for s in range(spec.n_shards):
-        sel = live & (slab == s)
+    for s in range(n_parts):
+        sel = live & (owner == s)
         cnt = int(sel.sum())
-        if cnt > spec.cap_local:
+        if cnt > cap_local:
             raise ValueError(
-                f"slab {s} holds {cnt} > cap_local {spec.cap_local}")
-        pad = spec.cap_local - cnt
+                f"{what} {s} holds {cnt} > cap_local {cap_local}")
+        pad = cap_local - cnt
         arrays = {}
         for k, arr in fields.items():
             take = arr[sel]
@@ -381,33 +402,46 @@ def _mig_buffer(x, v, acc, kind, emit, idx, valid, d):
     return _with_valid(_pack_mig(*rows, d), valid)
 
 
-def _slab_geometry(scene: Scene, spec: SpatialSpec, grid, me: int,
-                   skin: float = 0.0):
-    """(my_lo, my_hi, ci_offset) of rank `me`, in the reference's float32
-    arithmetic: a face an ulp off would change which particles are ghosts
-    or migrants.  `ci_offset` places the slab-local lattice: local cell 0
-    is global cell k_dev, chosen so [my_lo − h_eff − ε, my_hi + h_eff + ε]
-    is covered (h_eff = h + skin, the fast path's Verlet skin), clamped
-    inside the global lattice."""
-    my_lo = np.float32(spec.slab_lo) + np.float32(me) * np.float32(spec.slab_w)
-    my_hi = my_lo + np.float32(spec.slab_w)
+def _faces(scene: Scene, grid, axis: int, lo: float, w: float, i: int,
+           skin: float = 0.0):
+    """(my_lo, my_hi, k_dev) of part `i` along `axis` (parts of width w
+    from lo), in the reference's float32 arithmetic: a face an ulp off
+    would change which particles are ghosts or migrants.  k_dev places the
+    rank-local lattice along `axis`: local cell 0 is global cell k_dev,
+    chosen so [my_lo − h_eff − ε, my_hi + h_eff + ε] is covered (h_eff = h
+    + skin, the fast path's Verlet skin), clamped inside the global
+    lattice (None without a lattice)."""
+    my_lo = np.float32(lo) + np.float32(i) * np.float32(w)
+    my_hi = my_lo + np.float32(w)
     if grid is None:
         return my_lo, my_hi, None
-    ax = spec.axis
-    s_full = neighbors.GridSpec.for_scene(scene, skin=skin).shape[ax]
-    h, cell, lo = (np.float32(a) for a in (scene.params.h + skin, grid.cell,
-                                            grid.lo[ax]))
-    k_dev = int(np.floor((my_lo - h - cell - lo) / cell))
-    k_dev = min(max(k_dev, 0), s_full - grid.shape[ax])
-    ci_off = tuple(k_dev if a == ax else 0 for a in range(len(grid.shape)))
+    s_full = neighbors.GridSpec.for_scene(scene, skin=skin).shape[axis]
+    h, cell, glo = (np.float32(a) for a in (scene.params.h + skin, grid.cell,
+                                             grid.lo[axis]))
+    k_dev = int(np.floor((my_lo - h - cell - glo) / cell))
+    return my_lo, my_hi, min(max(k_dev, 0), s_full - grid.shape[axis])
+
+
+def _slab_geometry(scene: Scene, spec: SpatialSpec, grid, me: int,
+                   skin: float = 0.0):
+    """(my_lo, my_hi, ci_offset) of rank `me`'s slab (`_faces` along the
+    slab axis; ci_offset 0 on the other axes)."""
+    my_lo, my_hi, k_dev = _faces(scene, grid, spec.axis, spec.slab_lo,
+                                 spec.slab_w, me, skin)
+    if grid is None:
+        return my_lo, my_hi, None
+    ci_off = tuple(k_dev if a == spec.axis else 0
+                   for a in range(len(grid.shape)))
     return my_lo, my_hi, ci_off
 
 
 @dataclasses.dataclass(frozen=True)
 class _Slab:
-    """This rank's slab: its faces (float32 values held as Python floats)
-    and its lattice's `ci_offset`.  The first and last slab's outer faces
-    are domain walls: nothing is sent or migrates across them."""
+    """This rank's slab, or one cut axis of its pencil: its faces (float32
+    values held as Python floats), its lattice's `ci_offset` and its ring
+    neighbors along the axis (`peers`, None for the world's ring).  The
+    first and last part's outer faces are domain walls: nothing is sent or
+    migrates across them."""
 
     axis: int
     first: bool
@@ -415,6 +449,11 @@ class _Slab:
     lo: float
     hi: float
     ci_off: tuple | None
+    peers: tuple | None = None
+
+    def ring(self, to_left, to_right):
+        """`comm.ring_exchange` along this axis's ring."""
+        return comm.ring_exchange(to_left, to_right, self.peers)
 
     def bands(self, x, depth: float):
         """(near_lo, near_hi): x within `depth` of each interior face, the
@@ -463,7 +502,7 @@ def _exchange_ghosts(slab: _Slab, x, v, idx_lo, val_lo, idx_hi, val_hi):
     (gx, gv, g_valid), invalid rows far away with v 0.  Receipts at the
     domain walls are masked too."""
     d = x.shape[1]
-    g_from_right, g_from_left = comm.ring_exchange(
+    g_from_right, g_from_left = slab.ring(
         _ghost_buffer(x, v, idx_lo, val_lo, d),
         _ghost_buffer(x, v, idx_hi, val_hi, d))
     g = torch.cat([g_from_left, g_from_right])
@@ -475,12 +514,12 @@ def _exchange_ghosts(slab: _Slab, x, v, idx_lo, val_lo, idx_hi, val_hi):
     return gx, torch.where(valid[:, None], g[:, 3:3 + d], 0.0), valid
 
 
-def _ghost_rho_p(rho, p, idx_lo, idx_hi, g_valid):
+def _ghost_rho_p(slab: _Slab, rho, p, idx_lo, idx_hi, g_valid):
     """The ghosts' (rho, p) from their owners, for the same face particles
     in the same packed order as the (x, v) exchange; invalid ghosts rho 1,
     p 0."""
     rp = torch.stack([rho, p], dim=1)
-    rp_from_right, rp_from_left = comm.ring_exchange(
+    rp_from_right, rp_from_left = slab.ring(
         _gather_rows(rp, idx_lo), _gather_rows(rp, idx_hi))
     g = torch.cat([rp_from_left, rp_from_right])
     return (torch.where(g_valid, g[:, 0], 1.0),
@@ -525,7 +564,7 @@ def _migrate(slab: _Slab, spec: SpatialSpec, x, v, acc, kind, emit, active):
     idx_ml, val_ml, ov3 = _pack_idx(go_left, spec.cap_mig)
     idx_mh, val_mh, ov4 = _pack_idx(go_right, spec.cap_mig)
     cols = (x, v, acc, kind, emit)
-    m_from_right, m_from_left = comm.ring_exchange(
+    m_from_right, m_from_left = slab.ring(
         _mig_buffer(*cols, idx_ml, val_ml, d),
         _mig_buffer(*cols, idx_mh, val_mh, d))
     mr_valid = (m_from_right[:, F_MIG] > 0) & (not slab.last)
@@ -555,18 +594,27 @@ def _migrate(slab: _Slab, spec: SpatialSpec, x, v, acc, kind, emit, active):
 
 def _make_spatial_local(scene: Scene, spec: SpatialSpec, method: str = "grid"):
     """The per-rank slab step: st → (st, local overflow count [] i32)."""
-    if method not in ("naive", "grid", "pallas"):
-        raise ValueError(f"unknown neighbor method {method!r}")
-    params = scene.params
-    dt = params.dt
-    leap = params.integrator == "leapfrog"
     grid = None
     if method in ("grid", "pallas"):
         # slab-local lattice: grid and slot memory scale 1/n_shards
         grid = neighbors.GridSpec.for_slab(scene, spec.slab_w, spec.axis)
     slab = _slab(scene, spec, grid)
-    ci_off = slab.ci_off
-    nl = spec.cap_local
+    return _make_local(scene, spec, (slab,), slab.ci_off, grid, method)
+
+
+def _make_local(scene: Scene, spec, faces: tuple, ci_off, grid,
+                method: str):
+    """The per-rank step of slabs (one face) and pencils (two, axis 1 then
+    axis 2): st → (st, local overflow count [] i32).  Each of steps (a),
+    (b)'s re-import and (d) runs once per face in that order, over what
+    the previous face left, so a pencil's corner ghosts and diagonal
+    migrants make two hops."""
+    if method not in ("naive", "grid", "pallas"):
+        raise ValueError(f"unknown neighbor method {method!r}")
+    params = scene.params
+    dt = params.dt
+    leap = params.integrator == "leapfrog"
+    nl, gc = spec.cap_local, spec.cap_ghost
 
     def local(st: State):
         d = st.x.shape[1]
@@ -580,15 +628,22 @@ def _make_spatial_local(scene: Scene, spec: SpatialSpec, method: str = "grid"):
             v = v + (0.5 * dt) * acc * mov
             x = x + dt * v * mov
 
-        # (a) ghosts: particles within h of each interior face
-        near_lo, near_hi = slab.bands(x, params.h)
-        idx_lo, val_lo, ov1 = _pack_idx(active & near_lo, spec.cap_ghost)
-        idx_hi, val_hi, ov2 = _pack_idx(active & near_hi, spec.cap_ghost)
-        gx, gv, g_valid = _exchange_ghosts(slab, x, v, idx_lo, val_lo,
-                                           idx_hi, val_hi)
-        cx = torch.cat([x, gx])
-        cv = torch.cat([v, gv])
-        c_act = torch.cat([active, g_valid])
+        # (a) ghosts: the particles within h of each interior face, of the
+        # locals and (pencils' axis 2) the ghosts already received
+        cx, cv, c_act = x, v, active
+        overflow = torch.zeros((), dtype=torch.int32, device=x.device)
+        sent = []
+        for face in faces:
+            near_lo, near_hi = face.bands(cx, params.h)
+            idx_lo, val_lo, ov1 = _pack_idx(c_act & near_lo, gc)
+            idx_hi, val_hi, ov2 = _pack_idx(c_act & near_hi, gc)
+            gx, gv, g_valid = _exchange_ghosts(face, cx, cv, idx_lo, val_lo,
+                                               idx_hi, val_hi)
+            sent.append((idx_lo, idx_hi, g_valid))
+            cx = torch.cat([cx, gx])
+            cv = torch.cat([cv, gv])
+            c_act = torch.cat([c_act, g_valid])
+            overflow = overflow + ov1 + ov2
 
         # (b) density over locals + h-deep ghosts: the locals' support is
         # complete; the ghosts' own rho is truncated, so their true (rho, p)
@@ -605,9 +660,15 @@ def _make_spatial_local(scene: Scene, spec: SpatialSpec, method: str = "grid"):
             rho_c = physics.density_naive(cx, c_act, params)
         rho = rho_c[:nl]
         p = physics.eos_pressure(rho, params)
-        ghost_rho, ghost_p = _ghost_rho_p(rho, p, idx_lo, idx_hi, g_valid)
-        rho_cc = torch.cat([rho, ghost_rho])
-        p_cc = torch.cat([p, ghost_p])
+        # the re-import in the ghosts' order: a pencil's phase 2 forwards
+        # the phase-1-corrected values, so corner ghosts get their owner's
+        # (rho, p)
+        rho_cc, p_cc = rho, p
+        for face, (idx_lo, idx_hi, g_valid) in zip(faces, sent):
+            ghost_rho, ghost_p = _ghost_rho_p(face, rho_cc, p_cc, idx_lo,
+                                              idx_hi, g_valid)
+            rho_cc = torch.cat([rho_cc, ghost_rho])
+            p_cc = torch.cat([p_cc, ghost_p])
 
         # (b') forces with the ghosts' rho/p
         if method == "grid":
@@ -619,12 +680,16 @@ def _make_spatial_local(scene: Scene, spec: SpatialSpec, method: str = "grid"):
         else:
             f_c = physics.forces_naive(cx, cv, rho_cc, p_cc, c_act, params)
 
-        # (c) integrate the locals, (d) migrate across interior faces
+        # (c) integrate the locals, (d) migrate across interior faces: a
+        # pencil's axis 2 over the arrays axis 1 left, so a particle past
+        # both faces reaches its diagonal owner in the same step
         x, v, acc = _integrate(scene, x, v, rho, f_c[:nl], st.step, mov,
                                movable)
-        x, v, acc, kind, emit, ov_m = _migrate(slab, spec, x, v, acc,
-                                               st.kind, st.emit_step, active)
-        overflow = ov1 + ov2 + ov_m
+        kind, emit = st.kind, st.emit_step
+        for face in faces:
+            x, v, acc, kind, emit, ov_m = _migrate(
+                face, spec, x, v, acc, kind, emit, emit <= st.step)
+            overflow = overflow + ov_m
         if split_ctx is not None:
             # cell-cap and row-cap drops of the slot lattice too
             overflow = overflow + split_ctx.addr.overflow
@@ -734,7 +799,7 @@ class _SlabSlots:
     def exchange(self, xs, vs, pins):
         """The step's ghost exchange in slot space: send the pinned faces'
         (x, v), write the received ones into the ghost slots (in place)."""
-        g_from_right, g_from_left = comm.ring_exchange(
+        g_from_right, g_from_left = self.slab.ring(
             self.face_buffer(xs, vs, pins["lo"]),
             self.face_buffer(xs, vs, pins["hi"]))
         g = torch.cat([g_from_left, g_from_right])
@@ -753,7 +818,7 @@ class _SlabSlots:
         ax = slab.axis
 
         def rp_hook(rp):
-            rp_from_right, rp_from_left = comm.ring_exchange(
+            rp_from_right, rp_from_left = slab.ring(
                 self.rp_face(rp, pins["lo"]), self.rp_face(rp, pins["hi"]))
             self._put_ghosts(rp, pins, torch.cat([rp_from_left,
                                                   rp_from_right]))
@@ -881,8 +946,8 @@ def _make_spatial_reuse_local(scene: Scene, spec: SpatialSpec,
                     feat=pallas_step.scatter_slots(addr, rows, sg))
                 rho = pallas_step.pallas_density_split(ctx, params)[:nl]
                 p = physics.eos_pressure(rho, params)
-                ghost_rho, ghost_p = _ghost_rho_p(rho, p, idx_lo, idx_hi,
-                                                  g_valid)
+                ghost_rho, ghost_p = _ghost_rho_p(slab, rho, p, idx_lo,
+                                                  idx_hi, g_valid)
                 f = pallas_step.pallas_forces_split(
                     ctx, torch.cat([rho, ghost_rho]), torch.cat([p, ghost_p]),
                     params, d)[:nl]
@@ -1251,10 +1316,15 @@ def make_spatial_advance(
     if sort_every > 1:
         body = _make_spatial_reuse_local(scene, spec, sort_every,
                                          slot_resident=slot_resident)
-        length = steps_per_dispatch // sort_every
-    else:
-        body = _make_spatial_local(scene, spec, method)
-        length = steps_per_dispatch
+        return _dispatch(body, steps_per_dispatch // sort_every)
+    return _dispatch(_make_spatial_local(scene, spec, method),
+                     steps_per_dispatch)
+
+
+def _dispatch(body, length: int):
+    """advance(loc) → (loc, worst): `length` calls of the per-rank `body`,
+    worst the largest over them of the overflow summed over ranks (one
+    all-reduce of the stacked counts at the end)."""
 
     def advance(loc: State):
         overs = []
@@ -1400,4 +1470,173 @@ def make_audited_spatial_advance(
     audited.repaired = 0    # cumulative minority-repaired blocks
     audited.rebuilds = 0    # cumulative residency builds (the port's own)
     audited.mode = "resident"
+    return audited
+
+
+# ---------------------------------------------------------------------------
+# 4. Pencils: two cut axes on a 2-D rank grid, corner ghosts by two hops
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PencilSpec:
+    """Static 2-axis decomposition geometry: the domain cut into n1 × n2
+    rectangular pencils along (axis1, axis2), rank i1·n2 + i2 holding
+    pencil (i1, i2) (the reference's fields, one for one).  Pencils keep
+    each cut direction coarse where slabs would fall below 2h."""
+
+    n1: int
+    n2: int
+    axis1: int
+    axis2: int
+    lo1: float
+    lo2: float
+    w1: float
+    w2: float
+    cap_local: int
+    cap_ghost: int   # per face, both axes: phase-2 bands hold phase-1
+    #                  ghosts, so it is sized from the worst band of either
+    cap_mig: int
+
+    @staticmethod
+    def for_state(scene: Scene, state, n1: int, n2: int, axis1: int = 0,
+                  axis2: int | None = None, headroom: float = 3.0,
+                  skin: float = 0.0) -> "PencilSpec":
+        """`SpatialSpec.for_state`'s sizing: cap_local from the worst
+        pencil, cap_ghost from the worst 2·(h + skin)-deep face band of
+        either axis.  axis2 defaults to the last axis (3D: z, so a dam's
+        vertical axis y stays uncut)."""
+        if axis2 is None:
+            axis2 = scene.params.dim - 1
+        if axis1 == axis2:
+            raise ValueError("pencil axes must differ")
+        lo1, hi1 = scene.lo[axis1], scene.hi[axis1]
+        lo2, hi2 = scene.lo[axis2], scene.hi[axis2]
+        w1 = (hi1 - lo1) / n1
+        w2 = (hi2 - lo2) / n2
+        if min(w1, w2) < 2 * scene.params.h:
+            raise ValueError(
+                f"pencil widths ({w1:.1f}, {w2:.1f}) < 2h; fewer shards")
+        x = _host(state.x)
+        live = _host(state.emit_step) != int(INACTIVE)
+        owner = _pencil_of(x, axis1, lo1, w1, n1, axis2, lo2, w2, n2)
+        worst = int(np.bincount(owner[live], minlength=n1 * n2).max())
+        cap_local = min(
+            _round_up(x.shape[0], 64),
+            _round_up(int(worst * headroom) + 64, 64),
+        )
+        h_eff = scene.params.h + skin
+        band = 0
+        for n, lo, w, ax in ((n1, lo1, w1, axis1), (n2, lo2, w2, axis2)):
+            xa = x[live, ax]
+            for i in range(1, n):
+                band = max(band, int(np.sum(np.abs(xa - (lo + i * w))
+                                            < 2.0 * h_eff)))
+        cap_ghost = min(
+            _round_up(cap_local // 2 + 64, 64),
+            _round_up(int(band * headroom) + 256, 64),
+        )
+        return PencilSpec(
+            n1=n1, n2=n2, axis1=axis1, axis2=axis2, lo1=lo1, lo2=lo2,
+            w1=w1, w2=w2, cap_local=cap_local, cap_ghost=cap_ghost,
+            cap_mig=max(_round_up(cap_ghost // 2, 64), 256),
+        )
+
+
+def _pencil_of(x, axis1, lo1, w1, n1, axis2, lo2, w2, n2) -> np.ndarray:
+    """The pencil (rank i1·n2 + i2) of each position."""
+    return _part(x[:, axis1], lo1, w1, n1) * n2 + _part(x[:, axis2], lo2,
+                                                        w2, n2)
+
+
+def pencil_parts(state, spec: PencilSpec) -> list[dict]:
+    """`spatial_slabs` for pencils: the per-pencil arrays in rank order
+    (row-major (i1, i2))."""
+    return _split(state, lambda x: _pencil_of(x, spec.axis1, spec.lo1,
+                                              spec.w1, spec.n1, spec.axis2,
+                                              spec.lo2, spec.w2, spec.n2),
+                  spec.n1 * spec.n2, spec.cap_local, "pencil")
+
+
+def pencil_shard_state(state, scene: Scene, spec: PencilSpec,
+                       device=None) -> State:
+    """This rank's pencil of a global `state` (the same on every rank) as a
+    local State on its device."""
+    if comm.world_size() != spec.n1 * spec.n2:
+        raise ValueError(
+            f"the spec has {spec.n1}x{spec.n2} pencils, the process group "
+            f"{comm.world_size()} ranks")
+    return _local_state(pencil_parts(state, spec)[comm.rank()], state.step,
+                        comm.rank_device(device))
+
+
+def _pencil_faces(scene: Scene, spec: PencilSpec, grid) -> tuple:
+    """This rank's pencil: one `_Slab` a cut axis (axis 1, then axis 2),
+    each with its ring along that axis of the rank grid, and the lattice's
+    ci_offset on both cut axes (None without a lattice)."""
+    ranks = comm.RankGrid(spec.n1, spec.n2)
+    ci_off = [0] * scene.params.dim
+    faces = []
+    for k, (ax, lo, w, n, i) in enumerate(zip(
+            (spec.axis1, spec.axis2), (spec.lo1, spec.lo2),
+            (spec.w1, spec.w2), (spec.n1, spec.n2), ranks.coords())):
+        my_lo, my_hi, k_dev = _faces(scene, grid, ax, lo, w, i)
+        ci_off[ax] = k_dev
+        faces.append(_Slab(axis=ax, first=i == 0, last=i == n - 1,
+                           lo=float(my_lo), hi=float(my_hi), ci_off=None,
+                           peers=ranks.peers(k)))
+    return tuple(faces), (tuple(ci_off) if grid is not None else None)
+
+
+def _make_pencil_local(scene: Scene, spec: PencilSpec,
+                       method: str = "pallas"):
+    """The per-rank pencil step: st → (st, local overflow count [] i32),
+    on the pencil-local lattice (`GridSpec.for_pencil`)."""
+    grid = None
+    if method in ("grid", "pallas"):
+        grid = neighbors.GridSpec.for_pencil(
+            scene, {spec.axis1: spec.w1, spec.axis2: spec.w2})
+    faces, ci_off = _pencil_faces(scene, spec, grid)
+    return _make_local(scene, spec, faces, ci_off, grid, method)
+
+
+def make_pencil_step(scene: Scene, spec: PencilSpec, method: str = "pallas"):
+    """One pencil step: loc → (loc, overflow summed over ranks [] i32)."""
+    local = _make_pencil_local(scene, spec, method)
+
+    def step(loc: State):
+        out, over = local(loc)
+        return out, comm.all_reduce_sum(over)
+
+    return step
+
+
+def make_pencil_advance(scene: Scene, spec: PencilSpec,
+                        method: str = "pallas", steps_per_dispatch: int = 50):
+    """`steps_per_dispatch` pencil steps: loc → (loc, worst), the audit
+    contract of `make_spatial_advance`."""
+    return _dispatch(_make_pencil_local(scene, spec, method),
+                     steps_per_dispatch)
+
+
+def make_audited_pencil_advance(scene: Scene, spec: PencilSpec,
+                                method: str = "pallas",
+                                steps_per_dispatch: int = 100):
+    """`advance(loc) -> loc` over pencils, the contract of
+    `make_audited_spatial_advance`.  Pencils step per step only, so a
+    nonzero audit has no faster path to fall back from: it is a static
+    buffer outgrown, raised as SpatialCapOverflow on every rank together
+    (worst is summed over the ranks) for the caller's re-spec."""
+    adv = make_pencil_advance(scene, spec, method, steps_per_dispatch)
+
+    def audited(loc: State) -> State:
+        out, worst = adv(loc)
+        worst, at = step_mod._fetch(worst, loc.step)
+        if worst == 0:
+            return out
+        raise SpatialCapOverflow(
+            f"pencil dispatch at step {at} overflowed a static buffer "
+            f"(worst={worst}); rebuild the PencilSpec from the current "
+            f"state (PencilSpec.for_state)")
+
     return audited

@@ -1,5 +1,5 @@
 """Cell-grid geometry, per-particle cell indices, and the grid method
-(port of `sph_tpu/neighbors.py` without its pencil spec).
+(port of `sph_tpu/neighbors.py`).
 
 The cell size is h (+ a Verlet skin under address reuse), so every pair
 with r < h lies within ±1 cell on each axis.
@@ -18,11 +18,10 @@ XLA with no Pallas kernel:
 A particle past a cell's cap falls out of its tile (`cell_overflow`
 reports by how much), as in the reference.
 
-Slab decomposition (`decomp.py`) runs on a slab-local lattice
-(`GridSpec.for_slab`): fewer cells along the slab axis, indices computed
-against the global lattice and shifted by a whole number of cells per rank
-(`ci_offset`).  The pencil spec (`for_pencil`) comes with ROADMAP.md
-Queue 1 item 14.4.
+Domain decomposition (`decomp.py`) runs on a rank-local lattice: fewer
+cells along the slab axis (`GridSpec.for_slab`) or along both pencil axes
+(`GridSpec.for_pencil`), indices computed against the global lattice and
+shifted by a whole number of cells per rank (`ci_offset`).
 """
 
 from __future__ import annotations
@@ -119,6 +118,21 @@ class GridSpec:
         n_ax = int(math.ceil((slab_w + 2 * h_eff) / full.cell)) + 3
         shape = tuple(min(n_ax, s) if a == axis else s
                       for a, s in enumerate(full.shape))
+        return GridSpec(lo=full.lo, cell=full.cell, shape=shape,
+                        cap=full.cap, xsub=full.xsub)
+
+    @staticmethod
+    def for_pencil(scene: Scene, widths: dict, cap: int | None = None,
+                   skin: float = 0.0) -> "GridSpec":
+        """Pencil-local grid: `for_slab`'s restriction along every axis of
+        `widths` ({axis: pencil width}), so a rank's grid and slot memory
+        scale 1/(n1·n2).  The same global `lo` and integer `ci_offset`."""
+        full = GridSpec.for_scene(scene, cap=cap, skin=skin)
+        h_eff = scene.params.h + skin
+        shape = tuple(
+            min(int(math.ceil((widths[a] + 2 * h_eff) / full.cell)) + 3, s)
+            if a in widths else s
+            for a, s in enumerate(full.shape))
         return GridSpec(lo=full.lo, cell=full.cell, shape=shape,
                         cap=full.cap, xsub=full.xsub)
 

@@ -19,8 +19,7 @@ policy); each with the kernel options `precision="bf16"`, `xsub` and
 each such decision is one fetch to the host at a block boundary (`FETCHES`
 counts them).  `run(shards=N)` runs slabs across an N-rank
 `torch.distributed` world (`decomp.py`), per step or on the slab fast
-path; pencils raise NotImplementedError naming the ROADMAP.md item that
-brings them.
+path, and `run(shards=(n1, n2))` pencils across n1·n2 ranks, per step.
 """
 
 from __future__ import annotations
@@ -38,22 +37,10 @@ from sph_tpu_torch.platform import device_const, resolve_device
 from sph_tpu_torch.slot_kernels import LANE
 from sph_tpu_torch.state import State, init
 
-_ROADMAP = "(ROADMAP.md Queue 1 item {})"
-
-
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet " + _ROADMAP.format(item))
-
-
-def _check_slice(method: str, *, shards=None) -> None:
-    """Raise for an unknown method and for the option the port does not
-    have yet: pencils (`shards=(n1, n2)`).  Slabs (`shards=N`) run every
-    path, the fast path (`sort_every > 1`, slot-resident, auto-rebuild)
-    included."""
+def _check_slice(method: str) -> None:
+    """Raise for an unknown method."""
     if method not in ("naive", "grid", "pallas"):
         raise ValueError(f"unknown neighbor method {method!r}")
-    if shards and not isinstance(shards, int) and len(shards) > 1:
-        raise _not_ported("shards=(n1, n2) (pencil decomposition)", "14.4")
 
 
 def _check_packed(scene: Scene, method: str, *, xsub: int = 1,
@@ -1604,6 +1591,7 @@ def run(
     adaptive_cap: bool = False,
     shards: int | tuple[int, ...] | None = None,
     shard_axis: int = 0,
+    shard_axis2: int | None = None,
     membership_audit: bool = True,
     repair_k: int | None = None,
     packed_rows: bool | None = None,
@@ -1641,18 +1629,30 @@ def run(
     the local capacity and its particle order follows slab ownership.
     `steps_per_dispatch` and the remainder follow the single-device rules
     above.  `packed_rows` is ignored there, with a notice, as in the
-    reference; `adaptive_cap` is not read."""
-    _check_slice(method, shards=shards)
-    if shards and not isinstance(shards, int):
-        (shards,) = shards
-    if shards:
+    reference; `adaptive_cap` is not read.
+
+    shards=(n1, n2): pencils over (`shard_axis`, `shard_axis2`, default
+    the last axis) across n1·n2 ranks, rank i1·n2 + i2 holding pencil
+    (i1, i2), with `decomp.make_audited_pencil_advance`: per step only, as
+    in the reference, so `sort_every` and `slot_resident` are downgraded
+    to 1 and False.  The rest as for slabs."""
+    _check_slice(method)
+    dims = (shards,) if isinstance(shards, int) else tuple(shards or ())
+    dims = dims if any(dims) else ()    # 0 or None: one device
+    if len(dims) == 2:
+        shard_axis2 = (scene.params.dim - 1 if shard_axis2 is None
+                       else shard_axis2)
+        if shard_axis2 == shard_axis:
+            raise ValueError("shard_axis2 must differ from shard_axis")
+    if dims:
         from sph_tpu_torch import comm
 
-        if not _dist_ready(shards):
+        world = int(np.prod(dims))
+        if not _dist_ready(world):
             raise ValueError(
                 f"run(shards={shards}) needs an initialized torch.distributed "
-                f"process group of {shards} ranks, one process per rank: "
-                f"start it under `torchrun --nproc-per-node {shards}` and "
+                f"process group of {world} ranks, one process per rank: "
+                f"start it under `torchrun --nproc-per-node {world}` and "
                 f"call torch.distributed.init_process_group first")
         if xsub != 1 or row_pair:
             raise ValueError(
@@ -1665,16 +1665,16 @@ def run(
         state = init(scene, device=dev)
     if scene.params.integrator == "leapfrog" and int(state.step) == 0:
         state = prime(scene, state, method=method, device=dev)
-    if shards:
+    if dims:
         if packed_rows is not None:
             # packed rows are single-device only; slabs use the slot layout
             print("sph_tpu_torch: packed_rows is single-chip only; ignored "
                   "with shards (slot layout used)", file=sys.stderr)
         return _run_decomposed(
             scene, n_steps, method, steps_per_dispatch, state,
-            frame_callback, shards, shard_axis, dev, sort_every=sort_every,
-            slot_resident=slot_resident, membership_audit=membership_audit,
-            repair_k=repair_k)
+            frame_callback, dims, (shard_axis, shard_axis2), dev,
+            sort_every=sort_every, slot_resident=slot_resident,
+            membership_audit=membership_audit, repair_k=repair_k)
     if sort_every > 1:
         steps_per_dispatch -= steps_per_dispatch % sort_every
         steps_per_dispatch = max(steps_per_dispatch, sort_every)
@@ -1709,18 +1709,22 @@ def _dist_ready(world: int) -> bool:
 
 
 def _run_decomposed(scene, n_steps, method, steps_per_dispatch, state,
-                    frame_callback, shards: int, shard_axis: int, dev,
+                    frame_callback, dims: tuple, axes: tuple, dev,
                     sort_every: int = 1, slot_resident: bool = False,
                     membership_audit: bool = True, repair_k=None):
-    """run(shards=N): shard once, advance with the audited slab path,
-    re-spec elastically on static-cap outgrowth
-    (`decomp.SpatialCapOverflow`, raised on every rank together), gather
-    the global view for the callback and the return value.  Every rank
-    computes each spec from the same gathered arrays.  The fast path's
-    spec sizes its ghost band for the Verlet skin; a remainder dispatch
-    keeps the fast path only when `sort_every` divides it."""
+    """run(shards=): shard once, advance with the audited slab (dims (N,))
+    or pencil (dims (n1, n2), over `axes`) path, re-spec elastically on
+    static-cap outgrowth (`decomp.SpatialCapOverflow`, raised on every rank
+    together), gather the global view for the callback and the return
+    value.  Every rank computes each spec from the same gathered arrays.
+    The fast path's spec sizes its ghost band for the Verlet skin; a
+    remainder dispatch keeps the fast path only when `sort_every` divides
+    it.  Pencils step per step."""
     from sph_tpu_torch import decomp
 
+    pencil = len(dims) == 2
+    if pencil:
+        sort_every, slot_resident = 1, False
     if sort_every > 1:
         if method != "pallas":
             raise ValueError("sort_every > 1 requires method='pallas'")
@@ -1729,8 +1733,13 @@ def _run_decomposed(scene, n_steps, method, steps_per_dispatch, state,
     skin = default_skin(scene, sort_every) if sort_every > 1 else 0.0
 
     def build(st, spd, se, resident):
-        spec = decomp.SpatialSpec.for_state(scene, st, shards,
-                                            axis=shard_axis,
+        if pencil:
+            spec = decomp.PencilSpec.for_state(scene, st, *dims,
+                                               axis1=axes[0], axis2=axes[1])
+            loc = decomp.pencil_shard_state(st, scene, spec, dev)
+            return loc, decomp.make_audited_pencil_advance(scene, spec,
+                                                           method, spd)
+        spec = decomp.SpatialSpec.for_state(scene, st, dims[0], axis=axes[0],
                                             skin=skin if se > 1 else 0.0)
         loc = decomp.spatial_shard_state(st, scene, spec, dev)
         return loc, decomp.make_audited_spatial_advance(

@@ -6,9 +6,10 @@ same step, mode and counters, and its frame scalars agree within 1e-5
 relative (of the momentum's scale for the momentum, a sum that cancels).
 Frames of at most 100 steps, where the two dispatch plans agree (the
 reference splits longer pallas frames; ROADMAP.md Queue 3 item 4).  The
-reference's contradictory flag sets exit 2 with one line; `--shards`
-exits 2 naming the ROADMAP item that brings it; live interaction spawns
-and resets.
+reference's contradictory flag sets exit 2 with one line; `--shards` with
+more ranks than the launch has exits 2 with one line naming `torchrun`
+(test_torch_cli_shards.py runs it under torchrun); live interaction
+spawns and resets.
 """
 
 import json
@@ -131,10 +132,14 @@ def test_bad_flag_combos_exit_2_like_the_reference(argv, capsys,
 
 
 @pytest.mark.parametrize("shards", ["2", "2x2"])
-def test_shards_exit_2_naming_item_14(shards, capsys):
+def test_shards_exit_2_naming_item_14(shards, capsys, monkeypatch):
+    # one process, no torchrun world: the missing world is a usage error
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert cli.main(["run", "tutorial2d", "--shards", shards, *CPU]) == 2
     err = capsys.readouterr().err.strip()
-    assert "ROADMAP.md Queue 1 item 14.5" in err and "\n" not in err
+    n = 4 if "x" in shards else 2
+    assert f"torchrun --nproc-per-node {n}" in err and "\n" not in err
+    assert "Traceback" not in err
 
 
 def test_interact_spawn_and_reset(tmp_path, capsys):

@@ -182,15 +182,15 @@ def test_wrappers_reject_malformed_slot_arrays():
                                 gc, 16, p)
 
 
-# Pencils stay out; the slab fast path (reuse, resident, repair across
-# slabs) came with ROADMAP.md Queue 1 item 14.3 and now gets past the
-# option checks to the process-group check.
+# The slab fast path (reuse, resident, repair across slabs, ROADMAP.md
+# Queue 1 item 14.3) gets past the option checks to the process-group
+# check; pencils (item 14.4) check their two cut axes first.
 OUT_OF_SLICE = {
     "slot_resident": lambda s: port.run(s, 4, "pallas", sort_every=4,
                                         slot_resident=True, shards=2,
                                         device="cpu"),
     "shards": lambda s: port.run(s, 4, "pallas", shards=(2, 2),
-                                 device="cpu"),
+                                 shard_axis=1, device="cpu"),
     "shards_fast_path": lambda s: port.run(s, 4, "pallas", sort_every=4,
                                            shards=2, device="cpu"),
     "repair_k": lambda s: port.run(s, 4, "pallas", sort_every=4,
@@ -202,8 +202,9 @@ OUT_OF_SLICE = {
 @pytest.mark.parametrize("option", sorted(OUT_OF_SLICE))
 def test_out_of_slice_options_raise(option):
     if option == "shards":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 14.4"):
+        # in 2D shard_axis2 defaults to the last axis, 1: shard_axis=1 collides
+        with pytest.raises(ValueError,
+                           match="shard_axis2 must differ from shard_axis"):
             OUT_OF_SLICE[option](_scene())
         return
     # the slab fast path's options are accepted: without a process group

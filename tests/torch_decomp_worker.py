@@ -1,6 +1,6 @@
 """One rank of a gloo world for the decomposition tests
 (`test_torch_decomp_world.py`, `test_torch_decomp_run.py`,
-`test_torch_decomp_fast.py`).
+`test_torch_decomp_fast.py`, `test_torch_pencil.py`).
 
     python tests/torch_decomp_worker.py SUITE RANK WORLD STORE OUT
 
@@ -173,6 +173,58 @@ def straddle(m):
     full from the first step."""
     return pool(m, seed=68, block=((700.0, 20.0), (900.0, 160.0)),
                 velocity=(0.0, 0.0))
+
+
+# Pencils (suite "pencil", a 2x2 rank grid): the reference suite's scenes
+# (tests/test_domain_decomp.py:553-720), their blocks moved to straddle
+# the one interior face of each axis (x = 400, y = 400) and their corner.
+PENCIL_GRID = (2, 2)
+
+
+def square(m, blocks=None, emitters=(), capacity=0):
+    """tests/test_domain_decomp.py `_square_scene`: a drifting block whose
+    traffic crosses the interior faces of both axes and the corner."""
+    p = m.SimParams(boundary_mode="clamp", dt=5e-4)
+    blocks = blocks or (m.Block(lo=(250.0, 250.0), hi=(550.0, 500.0),
+                                velocity=(60.0, 30.0)),)
+    return m.calibrate(m.Scene(params=p, lo=(0.0, 0.0), hi=(800.0, 800.0),
+                               blocks=blocks, emitters=emitters,
+                               capacity=capacity, seed=77))
+
+
+def cube3d(m):
+    """test_pencil_3d_smoke's scene: WCSPH leapfrog in 3D."""
+    p = m.SimParams(dim=3, gravity=(0.0, -9.81, 0.0), eos="tait",
+                    integrator="leapfrog", kernel_norm="proper",
+                    boundary_mode="penalty", dt=4e-4)
+    return m.calibrate(m.Scene(
+        params=p, lo=(0.0, 0.0, 0.0), hi=(400.0, 200.0, 400.0),
+        blocks=(m.Block(lo=(60.0, 30.0, 60.0), hi=(340.0, 120.0, 340.0)),),
+        seed=78))
+
+
+# case: (scene function, method, steps, PencilSpec.for_state options); the
+# grid method is the slowest here, so it runs the shortest case
+PENCIL = {
+    "pencil_grid": (square, "grid", 30, {}),
+    "pencil_pallas": (square, "pallas", 60, {}),
+    # a diagonal block below the corner: migration across both axes,
+    # diagonal moves included
+    "pencil_migration": (
+        lambda m: square(m, blocks=(m.Block(lo=(300.0, 320.0),
+                                            hi=(398.0, 398.0),
+                                            velocity=(250.0, 180.0)),)),
+        "pallas", 150, {"headroom": 6.0}),
+    "pencil_emitters": (
+        lambda m: square(m, emitters=(m.Emitter(pos=(650.0, 650.0),
+                                                velocity=(-150.0, -120.0),
+                                                width=2),),
+                         capacity=2048),
+        "pallas", 150, {"headroom": 6.0}),
+    # axis2 defaults to the last axis (2): the lane axis is cut
+    "pencil_3d": (cube3d, "pallas", 8, {}),
+}
+PENCIL_RUN_SCENE = "tutorial2d"
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +580,75 @@ def case_run_fast(case: str) -> dict:
     return res
 
 
+# --- pencils ------------------------------------------------------------------
+
+
+def _pencil_start(case):
+    make, method, _, kw = PENCIL[case]
+    scene = make(port)
+    state = port.init(scene, device=CPU)
+    if scene.params.integrator == "leapfrog":
+        state = port.prime(scene, state, method, device=CPU)
+    spec = decomp.PencilSpec.for_state(scene, state, *PENCIL_GRID, **kw)
+    return scene, state, spec, decomp.pencil_shard_state(state, scene, spec,
+                                                         CPU)
+
+
+def case_pencil(case: str) -> dict:
+    """The first step alone (make_pencil_step), then one dispatch of the
+    rest; the gathered state, the per-pencil active counts before and
+    after, the spec's fields and this rank's lattice offset."""
+    _, method, n_steps, _ = PENCIL[case]
+    scene, state, spec, loc = _pencil_start(case)
+    before = _per_slab(loc)
+    loc, first = decomp.make_pencil_step(scene, spec, method)(loc)
+    loc, worst = decomp.make_pencil_advance(scene, spec, method,
+                                            n_steps - 1)(loc)
+    worst = torch.maximum(worst, first)
+    grid = decomp.neighbors.GridSpec.for_pencil(
+        scene, {spec.axis1: spec.w1, spec.axis2: spec.w2})
+    ci = decomp._pencil_faces(scene, spec, grid)[1]
+    offsets = decomp.comm.all_gather(torch.tensor([ci], dtype=torch.int64))
+    return {**_gathered("m", loc), "worst": np.int64(worst),
+            "before": before, "after": _per_slab(loc),
+            "n_start": int(state.n_active()),
+            "spec": np.array([str(dataclasses.astuple(spec))]),
+            "ci_offsets": offsets.numpy()}
+
+
+def case_pencil_overflow(_case: str) -> dict:
+    """Ghost buffers of 8: every rank raises SpatialCapOverflow from the
+    same dispatch, and the group stays usable."""
+    scene, _, spec, _ = _pencil_start("pencil_grid")
+    spec = dataclasses.replace(spec, cap_ghost=8)
+    state = port.init(scene, device=CPU)
+    loc = decomp.pencil_shard_state(state, scene, spec, CPU)
+    adv = decomp.make_audited_pencil_advance(scene, spec, "grid", 5)
+    try:
+        adv(loc)
+        raised = ""
+    except decomp.SpatialCapOverflow as e:
+        raised = str(e)
+    total = decomp.comm.all_reduce_sum(torch.ones((), dtype=torch.int32))
+    return {"raised": np.array(raised), "after": total.numpy()}
+
+
+def case_pencil_run(case: str) -> dict:
+    """run(shards=(2, 2)) for 13 steps in dispatches of 5, with a frame
+    callback, and on rank 0 the single-device run."""
+    scene = port.preset(PENCIL_RUN_SCENE)
+    frames = []
+    kw = dict(method="grid", steps_per_dispatch=5, device=CPU)
+    out = port.run(scene, 13, shards=PENCIL_GRID,
+                   frame_callback=lambda s: frames.append(int(s.step)), **kw)
+    res = {**{f"m_{k}": v for k, v in _np(out).items()},
+           "frames": np.array(frames)}
+    if dist.get_rank() == 0:
+        ref = port.run(scene, 13, **kw)
+        res.update({f"ref_{k}": v for k, v in _np(ref).items()})
+    return res
+
+
 SUITES = {
     "world": {
         **{c: case_dp for c in ("dp_euler", "dp_leapfrog", "dp_fields")},
@@ -552,8 +673,13 @@ SUITES = {
         "demote": case_fast_demote,
         "audited": case_fast_audited,
     },
+    "pencil": {
+        **{c: case_pencil for c in PENCIL},
+        "pencil_overflow": case_pencil_overflow,
+        "pencil_run": case_pencil_run,
+    },
 }
-PER_RANK = {"overflow", "one_rank"}
+PER_RANK = {"overflow", "one_rank", "pencil_overflow"}
 
 
 def spawn(suite: str, world: int, out: Path) -> list:
