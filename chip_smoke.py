@@ -236,6 +236,21 @@ Phases, each printed as one JSON line:
               decodes), run dam2d_10k --shards 1x1 as a plain command
               (a one-rank NCCL group of its own), and --shards 2x2 as one
               process (exit 2, one line naming torchrun)
+ 43. cli_frames  the reference CLI's frame split: run dam2d_10k
+              --steps-per-frame 250 (--method auto: 3 dispatches of 84)
+              and --method pallas --steps-per-frame 101 (2 of 51), two
+              frames each: metrics.jsonl's step 252, 504 and 102, 204
+ 44. bench    the step at which dam2d_10k's classic resident4 row first
+              raises a skin violation, beyond the steps any row runs here;
+              `python -m sph_tpu_torch.cli bench --steps BENCH_STEPS`,
+              the whole table in one subprocess: exit 0, every row but the
+              two @settled ones at full size with n the scene's active
+              count, the @settled rows UNAVAILABLE: FileNotFoundError (their
+              checkpoints are not made), each row's ms/step and
+              particle-steps/s; the flagship row splash3d_1m/resident4auto
+              in this process through `bench_step.bench_one`: the staged
+              K1/K2 launched, no yardstick; and `--assert-floor --only
+              splash3d_1m/resident4auto` exits 0
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
@@ -2044,6 +2059,180 @@ def phase_cli_shards() -> None:
               "--shards 2x2 as one process is one line of usage error")
 
 
+def phase_cli_frames() -> None:
+    """Phase 43, the reference CLI's frame split on the card: run
+    dam2d_10k --steps-per-frame 250 (--method auto: 3 dispatches of 84
+    steps) and --method pallas --steps-per-frame 101 (2 of 51), two
+    frames each; metrics.jsonl's step must read 252, 504 and 102, 204."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for flags, want in ((["--steps-per-frame", "250"], [252, 504]),
+                            (["--method", "pallas", "--steps-per-frame",
+                              "101"], [102, 204])):
+            out = Path(tmp) / "-".join(flags)
+            argv = ["run", "dam2d_10k", "--frames", "2", *flags, "--out",
+                    str(out), "--quiet"]
+            rc, _, err, secs = run_cli(argv)
+            steps = ([json.loads(ln)["step"] for ln in
+                      (out / "metrics.jsonl").read_text().splitlines()]
+                     if rc == 0 else None)
+            emit({"phase": "cli_frames", "argv": argv, "rc": rc,
+                  "seconds": secs, "steps": steps,
+                  "stderr_tail": err[-800:]})
+            check(rc == 0 and steps == want,
+                  f"run {' '.join(flags)}: steps {want} as the reference")
+
+
+# steps a dispatch of the bench table here (the bench's default is 100): a
+# cut of depth only, every row at its preset's full size.  A row runs at
+# most (2 + 3 * 64) dispatches (a chain holds at most 64), so at 8 steps
+# no row gets past step 1,552 of its run.  The phase checks that this is
+# short of the step where dam2d_10k's flow first outruns the skin of the
+# classic resident4 row, which then raises, as the reference's row does
+# (its clean-path rule): how far a row gets at the default 100 steps
+# follows the card's speed.
+BENCH_STEPS = 8
+BENCH_MAX_DISPATCHES = 2 + 3 * 64
+
+
+def first_violation(dev, name: str = "dam2d_10k", spd: int = 100,
+                    dispatches: int = 40):
+    """The step at the end of the first dispatch in which the classic
+    resident4 row's advance (`make_advance(..., sort_every=4,
+    slot_resident=True)`, dispatches of `spd`) reports a skin or cap
+    violation, from the preset's init; None if none in `dispatches`."""
+    import sph_tpu_torch as sph
+
+    scene = sph.preset(name)
+    state = sph.init(scene, device=dev)
+    if scene.params.integrator == "leapfrog":
+        state = sph.prime(scene, state, method="pallas", device=dev)
+    adv = sph.make_advance(scene, "pallas", steps_per_dispatch=spd,
+                           sort_every=4, slot_resident=True, device=dev)
+    for _ in range(dispatches):
+        state, viol = adv(state)
+        if int(viol):
+            return int(state.step)
+    return None
+BENCH_FLAGSHIP = ("splash3d_1m", "resident4auto")
+
+
+def bench_table(text: str) -> tuple:
+    """(tag → (n, ms/step, psteps/s) or the UNAVAILABLE text, the JSON
+    list) of the bench's stdout."""
+    lines = text.strip().splitlines()
+    rows = {}
+    for ln in lines[:-1]:
+        tag, rest = ln.split(None, 1)
+        m = re.match(r"n=\s*(\d+)\s+([\d.]+) ms/step\s+([\d.e+-]+) psteps/s",
+                     rest)
+        rows[tag] = ((int(m.group(1)), float(m.group(2)), float(m.group(3)))
+                     if m else rest)
+    return rows, json.loads(lines[-1])
+
+
+def bench_expected_n(dev, spd: int) -> dict:
+    """Scene → the active counts its rows may report: the seeded count for
+    the scenes without emitters; for emitters3d, which starts empty, the
+    count emitted by some whole number of dispatches of `spd` steps."""
+    import sph_tpu_torch as sph
+    from sph_tpu_torch import bench_step
+
+    want = {}
+    for name in sorted({n for n, _ in bench_step.CONFIGS}):
+        if name.endswith("@settled"):
+            continue
+        scene = sph.preset(name)
+        state = sph.init(scene, device=dev)
+        if scene.emitters:
+            e = state.emit_step.cpu()
+            want[name] = {int((e <= k * spd).sum())
+                          for k in range(1, 2 + 3 * 64 + 2)}
+        else:
+            want[name] = {int(state.n_active())}
+    return want
+
+
+def phase_bench(dev, smi: str) -> dict:
+    """Phase 44, the bench subcommand on the card: `python -m
+    sph_tpu_torch.cli bench --steps BENCH_STEPS` over the whole table in
+    one subprocess (exit 0; every row but the two @settled ones present,
+    with n the scene's active count: seeded, or for emitters3d emitted
+    by whole dispatches; the @settled rows `UNAVAILABLE:
+    FileNotFoundError`, their checkpoints not being made); each row's
+    ms/step and particle-steps/s printed.  First it finds where the
+    classic resident4 row first raises at dam2d_10k (`first_violation`)
+    and checks that no row here runs that far.  After the table, the
+    flagship row in this process through `bench_step.bench_one`, its launches read: the staged
+    K1/K2 ran and no yardstick did; then `--assert-floor --only
+    splash3d_1m/resident4auto` as a subprocess, which must exit 0."""
+    from sph_tpu_torch import bench_step
+
+    t0 = time.perf_counter()
+    viol_at = first_violation(dev)
+    emit({"phase": "bench", "dam2d_10k/resident4 first violation at step":
+          viol_at, "most steps a row runs here":
+          BENCH_MAX_DISPATCHES * BENCH_STEPS})
+    # the violating block lies in the last dispatch of 100 steps
+    check(viol_at is None
+          or viol_at - 100 >= BENCH_MAX_DISPATCHES * BENCH_STEPS,
+          "no row of this phase's table runs into dam2d_10k/resident4's "
+          "first violation")
+    argv = ["bench", "--steps", str(BENCH_STEPS)]
+    rc, out, err, secs = run_cli(argv)
+    emit({"phase": "bench", "argv": argv, "rc": rc, "seconds": secs,
+          "nvidia_smi": smi, "stderr_tail": err[-800:]})
+    check(rc == 0, "bench exits 0")
+    rows, table = bench_table(out)
+    want = bench_expected_n(dev, min(BENCH_STEPS, bench_step.BENCH_DISPATCH))
+    for name, method in bench_step.CONFIGS:
+        tag = f"{name}/{method}"
+        row = rows.get(tag)
+        if name.endswith("@settled"):
+            check(isinstance(row, str)
+                  and row.startswith("UNAVAILABLE: FileNotFoundError"),
+                  f"{tag} is unavailable without its checkpoint")
+            continue
+        check(isinstance(row, tuple), f"{tag} ran: {row}")
+        n, ms, ps = row
+        emit({"phase": "bench", "row": tag, "n": n, "ms_per_step": ms,
+              "psteps_per_s": ps, "floor": bench_step.FLOORS.get(
+                  (name, method)), "nvidia_smi": smi})
+        check(n in want[name], f"{tag}: n={n} is the scene's active count")
+    check([(r["config"], r["method"], r["n"]) for r in table]
+          == [(t.split("/")[0], t.split("/")[1], rows[t][0])
+              for t in rows if isinstance(rows[t], tuple)],
+          "the JSON list holds every row that ran")
+
+    name, method = BENCH_FLAGSHIP
+    reset_counts()
+    ps, per_step, n = bench_step.bench_one(name, method, BENCH_STEPS,
+                                           device=dev)
+    torch.cuda.synchronize()
+    launches = read_counts(f"bench {name}/{method}")
+    emit({"phase": "bench", "in_process": f"{name}/{method}", "n": n,
+          "ms_per_step": per_step * 1e3, "psteps_per_s": ps,
+          "launches": launches})
+    check(n == 1_080_000, "the flagship row at full size")
+    check(launches["slot_density"] > 0
+          and launches["slot_density"] == launches["slot_force"],
+          "the flagship row launched the staged K1 and K2")
+    check(launches["packed_density"] == launches["stage_transpose"] == 0,
+          "no K3 or K5 on the flagship row")
+    check(bench_step.FLOORS[BENCH_FLAGSHIP],
+          "the flagship row has an H100 floor")
+    argv = ["bench", "--steps", str(BENCH_STEPS), "--assert-floor",
+            "--only", f"{name}/{method}"]
+    rc, out, err, secs = run_cli(argv)
+    emit({"phase": "bench", "argv": argv, "rc": rc, "seconds": secs,
+          "stdout_tail": out[-600:], "stderr_tail": err[-400:]})
+    check(rc == 0 and "REGRESSION" not in out,
+          "the flagship row is above its floor")
+    emit({"phase": "bench", "seconds": time.perf_counter() - t0})
+    return {"launches": launches}
+
+
 # ---------------------------------------------------------------------------
 # Domain decomposition (decomp.py on torch.distributed)
 # ---------------------------------------------------------------------------
@@ -3405,6 +3594,9 @@ def main() -> int:
     at_pencil = phase_kernels_pencil(dev)
     ranks = phase_decomp_ranks(dev)
     phase_cli_shards()
+    # this slice: the command line's frame split, and the bench
+    phase_cli_frames()
+    bench = phase_bench(dev, smi)
 
     def resident(name):
         return {"resident4auto": {
@@ -3438,6 +3630,7 @@ def main() -> int:
                     **at_cap8[p][name]}
                 for p in ("dam3d_100k", "splash3d_1m")},
             **resident(name),
+            "bench": {"/".join(BENCH_FLAGSHIP): bench["launches"][name]},
             "at_slab": {"lattice": "slab-local, rank 1 of 4, dam3d_100k",
                         **at_slab[name]},
             "at_slab_skinned": {

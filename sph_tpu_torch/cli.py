@@ -1,9 +1,10 @@
-"""Command line of the port (port of `sph_tpu/cli.py`): `run`, `record` and
-`presets`.
+"""Command line of the port (port of `sph_tpu/cli.py`): `run`, `record`,
+`presets` and `bench`.
 
     python -m sph_tpu_torch.cli run dam3d_100k --sort-every 4 --resident --adaptive-cap
     python -m sph_tpu_torch.cli record dam2d_10k --frames 10 --out movie.apng
     python -m sph_tpu_torch.cli presets
+    python -m sph_tpu_torch.cli bench [--steps 100] [--only SUBSTR] [--assert-floor]
 
 `run` advances a preset (or a scene .json, or a checkpoint with
 `--resume`) frame by frame and writes one line of `metrics.jsonl` per
@@ -13,8 +14,17 @@ and defaults are the reference's.  The device is `--device` (default
 `cuda`): with no card the command exits non-zero with one line, and it
 never carries on on the CPU unless `--device cpu` asks for it.
 Contradictory flags exit 2 with one line before the device is touched.
-The reference's `bench` subcommand drives a JAX benchmark folder and has
-no counterpart here.
+A `--method pallas` frame (the default `auto` resolves to it) of more than
+FRAME_SPLIT steps runs as the reference CLI runs it: several equal
+dispatches, each rounded down to a multiple of `--sort-every`.
+
+`bench` prints the throughput table of `sph_tpu_torch/bench_step.py`, the
+reference's rows and timing at full preset sizes, on the card by default
+(`--device cpu` runs it on the host with the kernels' plain versions, as
+slowly as that is); `--assert-floor` exits 1 when a row is under its H100
+floor.  Its two `@settled` rows read `bench/.settled_1m_3000.npz` and
+`bench/.settled_emitters3d.npz`, which are not committed; without them
+they print `UNAVAILABLE: FileNotFoundError`.
 
 A decomposed run or record (`--shards N` slabs, `--shards N1xN2` pencils)
 is one process per rank:
@@ -38,7 +48,6 @@ import argparse
 import json
 import math
 import os
-import re
 import sys
 import time
 
@@ -50,7 +59,7 @@ from sph_tpu_torch.params import (
     preset_names,
     scene_from_json,
 )
-from sph_tpu_torch.platform import resolve_device
+from sph_tpu_torch.platform import device_arg, resolve_device
 from sph_tpu_torch.state import init
 from sph_tpu_torch.state import spawn as spawn_particles
 from sph_tpu_torch.step import make_audited_advance, prime
@@ -242,15 +251,27 @@ def _resolve_method(args) -> None:
         args.resident = True
 
 
-def _spf(args) -> int:
-    """Steps a dispatch: --steps-per-frame, rounded down to a multiple of
-    --sort-every (at least one block).  A frame is one dispatch: the
-    reference's split of long pallas frames is a TPU limit."""
-    spf = args.steps_per_frame
+#: The reference CLI's frame split (sph_tpu/cli.py:530-538): a `--method
+#: pallas` frame of more steps than this runs as ceil(S / FRAME_SPLIT)
+#: dispatches of ceil(S / inner) steps each.  The reference splits because
+#: of a TPU limit; the port splits the same way so that a frame takes the
+#: reference's steps and dispatch plan.  `step.run()` does not split.
+FRAME_SPLIT = 100
+
+
+def _frame_plan(args) -> tuple[int, int]:
+    """(steps a dispatch, dispatches a frame) for --steps-per-frame S: the
+    reference CLI's frame split, then the dispatch rounded down to a
+    multiple of --sort-every (at least one block; --debug steps one at a
+    time and is not rounded)."""
+    spf, inner = args.steps_per_frame, 1
+    if args.method == "pallas" and spf > FRAME_SPLIT:
+        inner = -(-spf // FRAME_SPLIT)
+        spf = -(-spf // inner)
     if args.sort_every > 1 and not getattr(args, "debug", False):
         spf -= spf % args.sort_every
         spf = max(spf, args.sort_every)
-    return spf
+    return spf, inner
 
 
 def _audited(args, scene, spf: int, device):
@@ -307,7 +328,8 @@ def _decomposed(args) -> int:
     env://, or a one-rank group of its own for `--shards 1` alone) and run
     the command in it; the group is destroyed on the way out."""
     import torch
-    import torch.distributed as dist
+
+    from sph_tpu_torch import comm
 
     n_total = math.prod(args.shards)
     desc = "x".join(str(d) for d in args.shards)
@@ -327,26 +349,19 @@ def _decomposed(args) -> int:
         return 1
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    if world is None:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
-    else:
-        dist.init_process_group(backend, init_method="env://")
-    try:
+    with comm.joined(backend, alone=world is None):
         _note(f"sph-tpu-torch: --shards {desc} on {n_total} rank(s), "
               f"{backend} backend, rank 0 on {device}")
         return args.fn(args, device)
-    finally:
-        dist.destroy_process_group()
 
 
 def _decomp_setup(args, scene, device):
     """Shared by `run --shards` and `record --shards`: validate the flag
     set (a _UsageError, the same on every rank) and return (build,
-    mesh_desc, n_total), where build(sc, st) -> (loc, adv) shards st
-    over the ranks and makes the audited advance.  Pencils
-    downgrade --sort-every/--resident/--repair-k to per step, with a
-    note."""
+    mesh_desc, n_total, inner), where build(sc, st) -> (loc, adv) shards
+    st over the ranks and makes the audited advance of the frame plan's
+    dispatch, and a frame is `inner` dispatches.  Pencils downgrade
+    --sort-every/--resident/--repair-k to per step, with a note."""
     from sph_tpu_torch import decomp
     from sph_tpu_torch.step import default_skin
 
@@ -379,7 +394,7 @@ def _decomp_setup(args, scene, device):
         # scenes run the slot layout
         _note("note: --packed-rows is single-chip only; ignored with "
               "--shards (slot layout used)")
-    spf = _spf(args)
+    spf, inner = _frame_plan(args)
     skin = default_skin(scene, args.sort_every) if args.sort_every > 1 else 0.0
 
     def build(sc, st):
@@ -399,7 +414,7 @@ def _decomp_setup(args, scene, device):
                     membership_audit=not args.strict_audit,
                     repair_k=args.repair_k))
 
-    return build, mesh_desc, n_total
+    return build, mesh_desc, n_total, inner
 
 
 def _advance_elastic(adv, loc, build, scene):
@@ -438,11 +453,11 @@ def _run_spatial(args, scene, state, device) -> int:
     """`run --shards N` (slabs) or `--shards N1xN2` (pencils): the
     audited decomposed advance with elastic recovery (a re-spec from the
     gathered state when the flow outgrows the static buffers); a frame is
-    one dispatch and one gather."""
+    the frame plan's dispatches and one gather."""
     from sph_tpu_torch import decomp
 
     try:
-        build, mesh_desc, n_total = _decomp_setup(args, scene, device)
+        build, mesh_desc, n_total, inner = _decomp_setup(args, scene, device)
     except _UsageError as e:
         _note(str(e))
         return 2
@@ -483,7 +498,8 @@ def _run_spatial(args, scene, state, device) -> int:
                               f"@ {req['pos']}")
                     if mutated:
                         loc, adv = build(scene, st_g)
-            loc, adv = _advance_elastic(adv, loc, build, scene)
+            for _ in range(inner):
+                loc, adv = _advance_elastic(adv, loc, build, scene)
             view = decomp.spatial_gather_state(loc)
             pack = diagnostics.scalar_pack(view, scene.params)
             if args.render and lead:
@@ -546,7 +562,7 @@ def _record_spatial(args, scene, state, device) -> int:
     from sph_tpu_torch import decomp
 
     try:
-        build, mesh_desc, _ = _decomp_setup(args, scene, device)
+        build, mesh_desc, _, inner = _decomp_setup(args, scene, device)
     except _UsageError as e:
         _note(str(e))
         return 2
@@ -555,7 +571,8 @@ def _record_spatial(args, scene, state, device) -> int:
     fields = []
     t0 = time.time()
     for frame in range(args.frames):
-        loc, adv = _advance_elastic(adv, loc, build, scene)
+        for _ in range(inner):
+            loc, adv = _advance_elastic(adv, loc, build, scene)
         view = decomp.spatial_gather_state(loc)
         if not lead:
             continue
@@ -581,7 +598,7 @@ def cmd_run(args, device) -> int:
     os.makedirs(args.out, exist_ok=True)
     if args.shards:
         return _run_spatial(args, scene, state, device)
-    spf = _spf(args)
+    spf, inner = _frame_plan(args)
     if args.debug:
         # sanitizer-style stepping: the checked step raises at the first
         # step whose checks fail
@@ -659,7 +676,8 @@ def cmd_run(args, device) -> int:
                         continue
                     print(f"interact: spawned {k} particles "
                           f"@ {req['pos']}", file=sys.stderr)
-            state = adv(state)
+            for _ in range(inner):
+                state = adv(state)
             pack = diagnostics.scalar_pack(state, scene.params)
             if args.render:
                 render.save_frame(
@@ -729,11 +747,13 @@ def cmd_record(args, device) -> int:
     state = _fresh_state(scene, args.method, device)
     if args.shards:
         return _record_spatial(args, scene, state, device)
-    adv = _audited(args, scene, _spf(args), device)
+    spf, inner = _frame_plan(args)
+    adv = _audited(args, scene, spf, device)
     fields = []
     t0 = time.time()
     for frame in range(args.frames):
-        state = adv(state)
+        for _ in range(inner):
+            state = adv(state)
         fields.append(render.render_splat(
             state, scene, args.width, args.height, args.mode,
             radius=args.radius,
@@ -743,13 +763,6 @@ def cmd_record(args, device) -> int:
     render.save_apng(args.out, fields, fps=args.fps)
     print(f"wrote {args.out} ({len(fields)} frames)")
     return 0
-
-
-def _device_arg(text: str) -> str:
-    if re.fullmatch(r"cpu|cuda(:\d+)?", text):
-        return text
-    raise argparse.ArgumentTypeError(
-        f"invalid device {text!r} (cuda, cuda:K or cpu)")
 
 
 def _add_common(p, frames: int, spf: int, out: str) -> None:
@@ -806,7 +819,7 @@ def _add_common(p, frames: int, spf: int, out: str) -> None:
                    help="second pencil cut axis (with --shards N1xN2; "
                         "default: the last domain axis)")
     p.add_argument("--quiet", action="store_true")
-    p.add_argument("--device", default="cuda", type=_device_arg,
+    p.add_argument("--device", default="cuda", type=device_arg,
                    help="cuda (default; exits when there is no card; with "
                         "--shards each rank on cuda:LOCAL_RANK), cuda:K, or "
                         "cpu (the kernels' plain PyTorch versions)")
@@ -839,10 +852,28 @@ def main(argv=None) -> int:
     listp = sub.add_parser("presets", help="list presets")
     listp.set_defaults(fn=None)
 
+    benchp = sub.add_parser(
+        "bench", help="throughput table (see sph_tpu_torch/bench_step.py)")
+    benchp.add_argument("--steps", type=int, default=100)
+    benchp.add_argument("--only", default=None)
+    benchp.add_argument("--assert-floor", action="store_true")
+    benchp.add_argument("--device", default="cuda", type=device_arg,
+                        help="cuda (default; exits when there is no card), "
+                             "cuda:K, or cpu (the kernels' plain versions)")
+
     args = ap.parse_args(argv)
     if args.cmd == "presets":
         print("\n".join(preset_names()))
         return 0
+    if args.cmd == "bench":
+        from sph_tpu_torch import bench_step
+
+        bargv = ["--steps", str(args.steps), "--device", args.device]
+        if args.only:
+            bargv += ["--only", args.only]
+        if args.assert_floor:
+            bargv.append("--assert-floor")
+        return bench_step.main(bargv)
     # resolve + validate flag combos BEFORE the device probe, so a usage
     # error never touches the device
     _resolve_method(args)

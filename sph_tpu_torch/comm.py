@@ -27,6 +27,7 @@ when a call fails: the error ends the run.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -47,6 +48,22 @@ def rank_device(device=None) -> torch.device:
         local = os.environ.get("LOCAL_RANK")
         device = "cuda" if local is None else f"cuda:{int(local)}"
     return resolve_device(device)
+
+
+@contextlib.contextmanager
+def joined(backend: str, alone: bool = False):
+    """The default process group for the `with` block, destroyed on the way
+    out: torchrun's env:// rendezvous, or with `alone` a group of this
+    process only (an in-memory store, no port)."""
+    if alone:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    else:
+        dist.init_process_group(backend, init_method="env://")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def rank() -> int:

@@ -7,7 +7,9 @@ runs, and then every slot kernel takes its plain PyTorch version.
 
 from __future__ import annotations
 
+import argparse
 import functools
+import re
 
 import torch
 
@@ -32,3 +34,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"sph_tpu_torch runs on 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def device_arg(text: str) -> str:
+    """argparse type of the command lines' `--device`: cuda, cuda:K or cpu."""
+    if re.fullmatch(r"cpu|cuda(:\d+)?", text):
+        return text
+    raise argparse.ArgumentTypeError(
+        f"invalid device {text!r} (cuda, cuda:K or cpu)")
