@@ -251,6 +251,24 @@ Phases, each printed as one JSON line:
               in this process through `bench_step.bench_one`: the staged
               K1/K2 launched, no yardstick; and `--assert-floor --only
               splash3d_1m/resident4auto` exits 0
+ 45. slot_pass  (run with phases 26 and 37) the resident block's two
+              passes, slot_pre (kick, drift, the feature array) and
+              slot_post (body forces, integration, walls, the drift audit
+              relaxed by membership), at dam3d_100k and splash3d_1m on the
+              skinned cap-16 lattice of sort_every=4 and on the cap-8
+              lattice, and on rank 1's skinned slab-local lattice (ghosts,
+              ci_offset, faces), from a carry moved ~0.3 cell off its build
+              positions: three steps (the first the block's) by the kernels
+              and by their plain versions, every element of the block's
+              arrays bitwise, the violation counts and the rebuild
+              predicate's (the block's last slot_post) equal; their times
+              (CUDA events over host launches, graph replay), the plain
+              versions', the block's first slot_pre, and the byte bound
+              over the occupied groups
+  Every path counts the passes' launches too: none off the resident
+  paths; on them slot_post once a step and slot_pre once a step under
+  leapfrog (once a block under Euler), unless a dispatch ran demoted.
+  Phase 18 also profiles pinned packed rows at emitters3d@settled.
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 
@@ -328,6 +346,12 @@ REPLACES = {
     "slot_force_bf16": "sph_tpu/pallas_step.py:837 (_force_kernel, bf16 "
                        "branch :855-887)",
     "probe_fp32": "bench/probe_vpu_bf16.py:38 (make_kernel, float32)",
+    # no pallas_call: XLA fuses the resident block's body inside lax.scan
+    "slot_pre": "sph_tpu/step.py:1032-1093 (run_block's kick, drift and "
+                "mk_feat, fused by XLA inside lax.scan; no pallas_call)",
+    "slot_post": "sph_tpu/step.py:1032-1093 (run_block's body_forces, "
+                 "integration, clamp_slot and audit, fused by XLA inside "
+                 "lax.scan; no pallas_call)",
     "probe_bf16": "bench/probe_vpu_bf16.py:38 (make_kernel, bfloat16)",
 }
 SOURCE = {
@@ -339,6 +363,8 @@ SOURCE = {
     "slot_density_bf16": "sph_tpu_torch/csrc/slot_kernels.cu",
     "slot_force_bf16": "sph_tpu_torch/csrc/slot_kernels.cu",
     "probe_fp32": "sph_tpu_torch/csrc/probe_kernels.cu",
+    "slot_pre": "sph_tpu_torch/csrc/slot_pass_kernels.cu",
+    "slot_post": "sph_tpu_torch/csrc/slot_pass_kernels.cu",
     "probe_bf16": "sph_tpu_torch/csrc/probe_kernels.cu",
 }
 # the production default (`sph-tpu run`'s --method auto)
@@ -347,6 +373,8 @@ RHO_RTOL, RHO_ATOL, F_REL = 1e-5, 1e-6, 3e-5
 # bf16 against fp32 per particle (tests/test_bf16.py:50-54)
 BF16_RHO_RTOL, BF16_F_REL = 2e-2, 6e-2
 N_TIMED = 20
+# steps of the slot_pass check, the first the block's
+SLOT_PASS_STEPS = 3
 # steps each path is driven for
 DEPTH = {"dam3d_100k": 200, "splash3d_1m": 20, "emitters3d@settled": 200}
 SETTLED = Path(__file__).resolve().parent / "bench" / ".settled_emitters3d_full.npz"
@@ -862,12 +890,14 @@ def audited_advances():
 def reset_counts() -> None:
     from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
     from sph_tpu_torch import probe_vpu_bf16 as pr
+    from sph_tpu_torch import slot_pass
     from sph_tpu_torch import stage_kernels as st, step as step_mod
 
     sk.reset_launches()
     pk.reset_launches()
     st.reset_launches()
     pr.reset_launches()
+    slot_pass.reset_launches()
     step_mod.reset_fetches()
 
 
@@ -876,9 +906,10 @@ def read_counts(name: str) -> dict:
     a yardstick (`*_simple`) or a measured launch choice (`*_variant`)."""
     from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
     from sph_tpu_torch import probe_vpu_bf16 as pr
-    from sph_tpu_torch import stage_kernels as st
+    from sph_tpu_torch import slot_pass, stage_kernels as st
 
-    counts = {**sk.LAUNCHES, **pk.LAUNCHES, **st.LAUNCHES, **pr.LAUNCHES}
+    counts = {**sk.LAUNCHES, **pk.LAUNCHES, **st.LAUNCHES, **pr.LAUNCHES,
+              **slot_pass.LAUNCHES}
     check(not any(n for k, n in counts.items()
                   if "simple" in k or "variant" in k),
           f"no yardstick or variant kernel launched at {name}")
@@ -983,11 +1014,34 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
             "per_block": fetches["fetches"] / max(fetches["blocks"], 1)}
     emit(out)
     check_health(name, hl, n_start, seen["overflow"], rho_band, vmax_limit)
+    check_slot_pass(name, launches, n_steps, scene,
+                    out["policy"]["modes"] if "policy" in out else None)
     for kernel, n in (want or {}).items():
         good = n(launches[kernel]) if callable(n) else launches[kernel] == n
         check(good, f"{kernel} launched {launches[kernel]} times at {name}")
     out["state"] = state
     return out
+
+
+def check_slot_pass(name: str, launches: dict, n_steps: int, scene,
+                    modes=None) -> None:
+    """The resident block's passes on a path: none on a path that is not
+    slot-resident (`modes` None); on one that is, slot_post once a step and
+    slot_pre once a step under leapfrog (its kick and drift), once a block
+    under Euler (the block's first), while no dispatch ran demoted to the
+    per-step path."""
+    pre, post = launches["slot_pre"], launches["slot_post"]
+    if modes is None:
+        check(pre == post == 0, f"no slot pass launched at {name}")
+        return
+    if set(modes) <= {"resident", "slot", "packed", "cap8", "cap16"}:
+        leap = scene.params.integrator == "leapfrog"
+        want = n_steps if leap else n_steps // RESIDENT["sort_every"]
+        check(post == n_steps and pre == want,
+              f"slot_pre/slot_post launched {pre}/{post} times at {name} "
+              f"(want {want}/{n_steps})")
+    else:
+        check(0 < post <= n_steps, f"slot_post launched at {name}")
 
 
 def phase_agreement(dev, state, scene, n_steps: int = 20):
@@ -1636,6 +1690,165 @@ def phase_probe(dev):
 
 CAP8 = dict(RESIDENT, adaptive_cap=True)
 ROOT = Path(__file__).resolve().parent
+
+
+def slot_pass_bound(name: str, addr, movb, d: int, params) -> tuple:
+    """(bound_ms, bound_by) of one in-place slot_pre (leapfrog kick and
+    drift) or slot_post on these arrays: the bytes of the slots of the
+    occupied groups (each input read once, each output written once) over
+    the HBM rate, and the operations of the movable slots over the fp32
+    rate."""
+    n = int(addr.n_occ[0])
+    slots = int((addr.gcounts[1:n + 1, 0] > 0).sum()) * 128
+    n_mov = int(movb.sum())
+    vec = d * 4
+    if name == "slot_pre":      # read x, v, acc, mov; write x, v
+        moved = slots * (5 * vec + 1)
+        ops = n_mov * 6 * d
+    else:                       # read x, v, rho, f, x0, mov; write v, acc
+        euler_or_clamp = (params.integrator != "leapfrog"
+                          or params.boundary_mode == "clamp")
+        moved = slots * ((6 + euler_or_clamp) * vec + 4 + 1)
+        penalty = 10 * d if params.boundary_mode == "penalty" else 0
+        ops = n_mov * (2 * d + penalty + 2 * d + 1 + 2 * d + 3 * d + 4 * d)
+    t_bytes = moved / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_slot_pass(name: str, dev, grid=None, lattice: str = "sort_every=4",
+                    slab=None) -> dict:
+    """slot_pre and slot_post against their plain versions on the slot
+    arrays of `name`'s resident block (default: the skinned lattice of
+    sort_every=4; `grid` another, e.g. cap 8; `slab` = (scene, s0, grid,
+    slots, ghosts, ci_offset, faces) a slab-local lattice with its ghosts,
+    ci_offset and faces), from a carry whose movable slots were moved
+    ~0.3 cell off their build positions with a flow's velocities and
+    accelerations, so the audit fires and membership decides: each of
+    SLOT_PASS_STEPS steps (the first the block's) run by the kernels and by
+    the plain versions, K1/K2 between, every element of the block's
+    arrays bitwise and the violation count equal.  Then their times by
+    CUDA events over host launches and by graph replay, the plain
+    versions', the block's first slot_pre, and the byte bound over the
+    occupied groups."""
+    from sph_tpu_torch import init, pallas_step as ps, preset, prime
+    from sph_tpu_torch import slot_pass
+    from sph_tpu_torch import step as step_mod
+
+    if slab is None:
+        scene = preset(name)
+        leap = scene.params.integrator == "leapfrog"
+        state = init(scene, device=dev)
+        if leap:
+            state = prime(scene, state, "pallas", device=dev)
+        grid = grid or reuse_grid(scene, RESIDENT["sort_every"])
+        sg = ps.slot_grid(grid)
+        c = step_mod._residency(state, grid, sg, scene.params.dim,
+                                scene.params.dt, leap, True)
+        ci, faces = None, None
+    else:
+        scene, state, grid, (x, v, act), ghosts, ci, faces = slab
+        sg = ps.slot_grid(grid)
+        cx = torch.cat([x] + [g[0] for g in ghosts])
+        cv = torch.cat([v] + [g[1] for g in ghosts])
+        c_act = torch.cat([act] + [g[2] for g in ghosts])
+        mov = torch.cat([act] + [torch.zeros_like(g[2]) for g in ghosts])
+        c = step_mod._scatter_residency(cx, cv, c_act, mov, grid, sg, True,
+                                        ci)
+    params = scene.params
+    d, dt = params.dim, params.dt
+    leap = params.integrator == "leapfrog"
+    addr, movb = c["addr"], c["movb"]
+    skin = grid.cell - params.h
+    half2 = (0.5 * skin) ** 2
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def noise(scale):
+        return torch.randn(c["xs"].shape, generator=gen, device=dev) * scale
+
+    xs = torch.where(movb, c["xs"] + noise(0.3 * grid.cell), c["xs"])
+    vs = torch.where(movb, c["vs"] + noise(0.1 * params.sound_speed),
+                     c["vs"])
+    acc = torch.where(movb, noise(3e3), 0.0)
+    step0 = state.step
+    sp = step_mod._SlotPhysics(scene, grid, sg, dev)
+    budget = 0.5 * skin
+    plan = slot_pass.PostPlan(sp, leap, half2, True, ci, faces, budget,
+                              RESIDENT["sort_every"])
+    blocks = [slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, False, dev)
+              for _ in range(2)]
+    ways = ((slot_pass.slot_pre, slot_pass.slot_post),
+            (slot_pass.slot_pre_plain, slot_pass.slot_post_plain))
+    counts, err = [], {"slot_pre": 0.0, "slot_post": 0.0}
+    where = f"{name}, lattice {lattice}"
+    for i in range(SLOT_PASS_STEPS):
+        for blk, (pre, post) in zip(blocks, ways):
+            src = (xs, vs, acc) if i == 0 else (blk.xs, blk.vs, blk.acc)
+            pre(blk, *src, movb, addr.gcounts, addr.n_occ, dt, leap, leap,
+                i == 0)
+        torch.cuda.synchronize()
+        a, b = blocks
+        err["slot_pre"] = max(err["slot_pre"],
+                              float((a.feat - b.feat).abs().max()))
+        check(bitwise(a.feat, b.feat), f"slot_pre bitwise plain at {where}, "
+                                       f"step {i}")
+        last = i == SLOT_PASS_STEPS - 1
+        for blk, (pre, post) in zip(blocks, ways):
+            rp = ps._call_density(blk.feat, addr, sg, params, c["jb"])
+            f = ps._call_force(blk.feat, rp, addr, sg, params, c["jb"])
+            post(blk, rp, f, c["x0s"], movb, addr, plan, step0, i, last)
+        torch.cuda.synchronize()
+        err["slot_post"] = max(err["slot_post"],
+                               float((a.feat - b.feat).abs().max()),
+                               float((a.acc - b.acc).abs().max()))
+        counts.append((int(a.count), int(b.count)))
+        check(bitwise(a.feat, b.feat) and bitwise(a.acc, b.acc)
+              and counts[-1][0] == counts[-1][1],
+              f"slot_post bitwise plain at {where}, step {i}")
+    risky = (int(a.risky), int(b.risky))
+    check(risky[0] == risky[1],
+          f"slot_post's rebuild predicate equals plain at {where}")
+    check(counts[-1][0] > 0 and risky[0] > 0,
+          f"the audit and the rebuild predicate fired at {where}")
+
+    a, b = blocks
+    rp = ps._call_density(a.feat, addr, sg, params, c["jb"])
+    f = ps._call_force(a.feat, rp, addr, sg, params, c["jb"])
+    calls = {
+        "slot_pre": (
+            lambda: slot_pass.slot_pre(a, a.xs, a.vs, a.acc, movb,
+                                       addr.gcounts, addr.n_occ, dt, True,
+                                       True, False),
+            lambda: slot_pass.slot_pre_plain(b, b.xs, b.vs, b.acc, movb,
+                                             addr.gcounts, addr.n_occ, dt,
+                                             True, True, False)),
+        "slot_post": (   # a block's last, with the rebuild predicate
+            lambda: slot_pass.slot_post(a, rp, f, c["x0s"], movb, addr,
+                                        plan, step0, 0, True),
+            lambda: slot_pass.slot_post_plain(b, rp, f, c["x0s"], movb,
+                                              addr, plan, step0, 0, True)),
+    }
+    res = {}
+    for kname, (kern, plain) in calls.items():
+        b_ms, b_by = slot_pass_bound(kname, addr, movb, d, params)
+        res[kname] = {"max_abs_err": err[kname], "bitwise_plain": True,
+                      "ms": cuda_ms(kern), "graph_ms": graph_ms(kern),
+                      "plain_ms": cuda_ms(plain), "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None}
+    first = slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, False, dev)
+    res["slot_pre"]["first_ms"] = cuda_ms(lambda: slot_pass.slot_pre(
+        first, xs, vs, acc, movb, addr.gcounts, addr.n_occ, dt, True, True,
+        True))
+    n = int(addr.n_occ[0])
+    emit({"phase": "slot_pass", "preset": name, "lattice": lattice,
+          "slot_arrays": [sg.c_rows, sg.lanes], "n_occ": n,
+          "occupied_groups": int((addr.gcounts[1:n + 1, 0] > 0).sum()),
+          "groups": sg.c_rows * sg.n_groups, "movable": int(movb.sum()),
+          "ci_offset": ci, "faces": dataclasses.asdict(faces) if faces
+          else None, "violations_kernel_plain": counts,
+          "rebuild_risky_kernel_plain": risky,
+          "kernels": res})
+    return res
 
 
 def cap8_lattice(scene, state):
@@ -2673,6 +2886,8 @@ def phase_decomp_fast(name: str, dev) -> dict:
               f"{k} launched {launches[k]} times on decomp_fast {name} "
               f"(want {want})")
     check(pol["modes"] == ["resident"], f"the fast path ran at {name}")
+    check_slot_pass(f"decomp_fast {name}", launches, n_steps, scene,
+                    pol["modes"])
     return out
 
 
@@ -3135,14 +3350,12 @@ def check_pencil_ranks(ranks: list, a, b, scene, n_start: int) -> None:
     check_agreement("decomp_pencil_ranks", agree)
 
 
-def phase_kernels_slab(dev, skin: float = 0.0) -> dict:
-    """K1 and K2 on rank 1's slab-local lattice of a RANKS-slab
-    dam3d_100k at step 0: the step's concatenation of locals and the
-    ghosts both neighbors send (their faces' particles), K2 on rp from
-    scatter_rp with the ghosts' rho/p as their owners compute them (the
-    single-device K1).  Bitwise their simple yardsticks, phase 3's
-    tolerances against the plain versions, times and bound.  With `skin`
-    (phase 37): the fast path's skinned slab lattice, its ghosts the
+def slab_rank1(dev, skin: float = 0.0):
+    """Rank 1's slab-local lattice of a RANKS-slab dam3d_100k at step 0:
+    (scene, s0, spec, grid, geometry (lo, hi, ci_offset) of ranks 0-2, its
+    slots (x, v, active, global index), the ghosts both neighbors send
+    (their faces' particles), the ghost band, the lattice's name).  With
+    `skin`: the fast path's skinned slab lattice, its ghosts the
     auto-rebuild path's 2·(h + skin)-deep bands."""
     from sph_tpu_torch import decomp, init, neighbors, preset
 
@@ -3171,7 +3384,20 @@ def phase_kernels_slab(dev, skin: float = 0.0) -> dict:
         lo, hi = geo[r][0], geo[r][1]
         parts.append(face_ghosts(local(r), 0, lo, hi, face, band,
                                  spec.cap_ghost))
-    return kernels_on_lattice(dev, scene, s0, grid, geo[1][2], local(1),
+    return scene, s0, spec, grid, geo, local(1), parts, band, lattice
+
+
+def phase_kernels_slab(dev, skin: float = 0.0) -> dict:
+    """K1 and K2 on rank 1's slab-local lattice of a RANKS-slab
+    dam3d_100k at step 0 (`slab_rank1`): the step's concatenation of
+    locals and the ghosts both neighbors send, K2 on rp from scatter_rp
+    with the ghosts' rho/p as their owners compute them (the single-device
+    K1).  Bitwise their simple yardsticks, phase 3's tolerances against the
+    plain versions, times and bound.  With `skin` (phase 37): the fast
+    path's skinned slab lattice."""
+    scene, s0, _, grid, geo, local, parts, band, lattice = slab_rank1(dev,
+                                                                      skin)
+    return kernels_on_lattice(dev, scene, s0, grid, geo[1][2], local,
                               parts, lattice, {"ghost_band": band})
 
 
@@ -3401,11 +3627,19 @@ def main() -> int:
                for p in ("dam3d_100k", "splash3d_1m")}
     # and on the cap-8 lattice of the adaptive policy (its occupancy-fit
     # skin at step 0)
-    at_cap8, cap8_skins = {}, {}
+    at_cap8, cap8_skins, cap8_grids = {}, {}, {}
     for p in ("dam3d_100k", "splash3d_1m"):
         scene = sph.preset(p)
-        cap8_skins[p], grid8 = cap8_lattice(scene, sph.init(scene, device=dev))
-        at_cap8[p] = phase_kernels(p, dev, grid=grid8, lattice="cap 8")
+        cap8_skins[p], cap8_grids[p] = cap8_lattice(
+            scene, sph.init(scene, device=dev))
+        at_cap8[p] = phase_kernels(p, dev, grid=cap8_grids[p],
+                                   lattice="cap 8")
+    # this slice: the resident block's passes on the same lattices
+    at_pass = {p: phase_slot_pass(p, dev)
+               for p in ("dam3d_100k", "splash3d_1m")}
+    at_pass8 = {p: phase_slot_pass(p, dev, grid=cap8_grids[p],
+                                   lattice="cap 8")
+                for p in ("dam3d_100k", "splash3d_1m")}
 
     runs = {}
     for name in ("dam3d_100k", "splash3d_1m"):
@@ -3507,6 +3741,8 @@ def main() -> int:
         scene = sph.preset(name)
         phase_profile_resident(name, scene, sph.init(scene, device=dev),
                                n_prof, dev)
+    phase_profile_resident("emitters3d@settled", scene_e, settled, 12, dev,
+                           packed_rows=True)
 
     # this slice: the kernel options that are off by default, and P1
     at_bf16 = {p: phase_kernels_bf16(p, dev)
@@ -3592,6 +3828,19 @@ def main() -> int:
         dev, skin=sph.default_skin(sph.preset("dam3d_100k"),
                                    RESIDENT["sort_every"]))
     at_pencil = phase_kernels_pencil(dev)
+    # the resident block's passes on rank 1's skinned slab lattice, with
+    # its ghosts, ci_offset and faces
+    from sph_tpu_torch.decomp import _Slab
+
+    scene_s, s0_s, spec_s, grid_s, geo_s, local_s, ghosts_s, _, lat_s = \
+        slab_rank1(dev, sph.default_skin(sph.preset("dam3d_100k"),
+                                         RESIDENT["sort_every"]))
+    at_pass_slab = phase_slot_pass(
+        "dam3d_100k", dev, lattice=lat_s,
+        slab=(scene_s, s0_s, grid_s, local_s[:3], ghosts_s, geo_s[1][2],
+              _Slab(axis=spec_s.axis, first=False, last=False,
+                    lo=float(geo_s[1][0]), hi=float(geo_s[1][1]),
+                    ci_off=geo_s[1][2])))
     ranks = phase_decomp_ranks(dev)
     phase_cli_shards()
     # this slice: the command line's frame split, and the bench
@@ -3696,6 +3945,26 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], **probe_res[name],
             "library_ms": None,
+        })
+    for name in ("slot_pre", "slot_post"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": runs["resident:dam3d_100k"]["launches"][name],
+            **at_pass["dam3d_100k"][name],
+            "at_scale": {"preset": "splash3d_1m", "lattice": "sort_every=4",
+                         "launches":
+                             runs["resident:splash3d_1m"]["launches"][name],
+                         **at_pass["splash3d_1m"][name]},
+            "at_cap8": {
+                p: {"lattice": "cap 8", "skin": cap8_skins[p],
+                    "launches": runs[f"cap8:{p}"]["launches"][name],
+                    **at_pass8[p][name]}
+                for p in ("dam3d_100k", "splash3d_1m")},
+            "at_slab_skinned": {"lattice": lat_s, **at_pass_slab[name]},
+            **resident(name),
+            "decomposed": {f"decomp_fast {p}": fast_runs[p]["launches"][name]
+                           for p in ("dam3d_100k", "splash3d_1m")},
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -59,6 +59,13 @@ SIGNATURES = {
                                  _P),
         "packed_defaults": (_P,),
     },
+    "slot_pass_kernels": {
+        "slot_pre": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+        "slot_post": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                      _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+        "slot_post_consts_bytes": (),
+    },
     "stage_kernels": {
         "stage_transpose": (_P, _P, _I, _I, _I, _P),
     },

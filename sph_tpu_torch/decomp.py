@@ -70,7 +70,7 @@ import sys
 import numpy as np
 import torch
 
-from sph_tpu_torch import comm, neighbors, pallas_step, physics
+from sph_tpu_torch import comm, neighbors, pallas_step, physics, slot_pass
 from sph_tpu_torch import step as step_mod
 from sph_tpu_torch.params import Scene
 from sph_tpu_torch.state import _FIELDS, INACTIVE, State
@@ -806,16 +806,17 @@ class _SlabSlots:
         self._put_ghosts(xs, pins, g[:, 0:self.d])
         self._put_ghosts(vs, pins, g[:, 3:3 + self.d])
 
-    def steps(self, c, use_mem: bool):
+    def steps(self, c, use_mem: bool, budget=None):
         """`step._slot_steps` from the carry `c` (addr, xs, vs, acc, movb,
         x0s, refs, jb, pins, step0, drifted): each step's drift exchanges
         the pinned faces' (x, v) into the ghost slots (not step 0 of a
         `drifted` carry: its build had them), K1's rp gets the faces'
         (rho, p) before K2, and with `use_mem` the drift audit is relaxed
-        by cell membership except past a slab face.  Returns (xs, vs, acc,
-        rp, viol)."""
+        by cell membership except past a slab face; with a `budget` the
+        block's end also counts the membership rebuild predicate's slots,
+        the face distance its extra margin.  Returns (xs, vs, acc, rp,
+        viol, risky)."""
         pins, slab = c["pins"], self.slab
-        ax = slab.axis
 
         def rp_hook(rp):
             rp_from_right, rp_from_left = slab.ring(
@@ -823,15 +824,11 @@ class _SlabSlots:
             self._put_ghosts(rp, pins, torch.cat([rp_from_left,
                                                   rp_from_right]))
 
-        def beyond(xs):
-            go_lo, go_hi = slab.beyond(xs[:, ax:ax + 1, :])
-            return go_lo | go_hi
-
         return step_mod._slot_steps(
-            self.sp, c, self.sort_every, self.half2, use_mem, self.grid,
-            self.leap, self.sp.feat_builder(c),
+            self.sp, c, self.sort_every, self.half2, use_mem, self.leap,
             exchange=lambda xs, vs: self.exchange(xs, vs, pins),
-            rp_hook=rp_hook, ci_offset=slab.ci_off, beyond=beyond)
+            rp_hook=rp_hook, ci_offset=slab.ci_off, faces=slab,
+            budget=budget)
 
     def rp_face(self, rp, f):
         """The (rho, p) of a pinned face from K1's rp (rest density and 0
@@ -916,7 +913,7 @@ def _make_spatial_reuse_local(scene: Scene, spec: SpatialSpec,
             c.update(acc=None, pins=res.pins(c["addr"], *faces),
                      step0=st.step, drifted=True)
             overflow = overflow + c["addr"].overflow
-            xs, vs, acc_s, rp, viol = res.steps(c, use_mem=False)
+            xs, vs, acc_s, rp, viol, _ = res.steps(c, use_mem=False)
             c.update(xs=xs, vs=vs, acc=acc_s, rp=rp)
             x, v, acc, rho, p = step_mod._read_back(
                 res.sp, c, st.x, st.v, st.acc, st.rho, st.p, active0,
@@ -1103,31 +1100,39 @@ def _make_spatial_resident_auto(
             return {**sh, "x": x, "v": v, "acc": acc, "kind": kind,
                     "emit": emit}, ov_m
 
-        def need_flags(c):
+        # the membership predicate is counted by the block's last slot_post
+        fused_need = reactive_theta is None and use_mem and rebuild_frac > 0
+
+        def need_flags(c, risky=None):
             """This rank's (need, activated) [2] i32 for the block that
             starts from `c`: the rebuild predicate or an activation since
-            the last build, and the activation alone."""
+            the last build, and the activation alone.  `risky`: the
+            predicate's slots on `c`, counted by the block that ended in
+            it."""
+            emit = c["shadow"]["emit"]
+            activated = torch.any((emit > c["build_step"])
+                                  & (emit <= c["step"]))
+            # an activation forces the rebuild: the new particles have no
+            # slot until one
+            if risky is not None:
+                return torch.stack([(risky > 0) | activated,
+                                    activated]).to(torch.int32)
             dd = c["xs"] - c["x0s"]
             dd2 = torch.sum(dd * dd, dim=1, keepdim=True)
             if reactive_theta is not None:
                 # measured drift only; the heal backstops an overrun
                 need = (torch.sqrt(torch.amax(dd2))
                         > reactive_theta * 0.5 * skin)
-            elif use_mem and rebuild_frac > 0:
-                face_m = slab.face_margin(c["xs"][:, ax:ax + 1, :])
-                need = torch.any(step_mod._membership_risky(
+            elif fused_need:
+                need = torch.any(slot_pass.membership_risky(
                     c, grid, dd2, dt, sort_every, budget,
-                    ci_offset=slab.ci_off, extra_margin=face_m))
+                    ci_offset=slab.ci_off,
+                    extra_margin=slot_pass.face_margin(slab, c["xs"])))
             else:
                 drift_now = torch.sqrt(torch.amax(dd2))
                 vmax = torch.sqrt(torch.amax(torch.sum(c["vs"] * c["vs"],
                                                        dim=1)))
                 need = drift_now + 1.2 * vmax * dt * sort_every > budget
-            emit = c["shadow"]["emit"]
-            activated = torch.any((emit > c["build_step"])
-                                  & (emit <= c["step"]))
-            # an activation forces the rebuild: the new particles have no
-            # slot until one
             return torch.stack([need | activated, activated]).to(torch.int32)
 
         def mesh_need(c):
@@ -1206,7 +1211,8 @@ def _make_spatial_resident_auto(
                 sl["drifted"] = False
                 audit = torch.zeros((), **i32)
             sl["step0"] = step0
-            xs, vs, acc_s, rp, viol = res.steps(sl, use_mem)
+            xs, vs, acc_s, rp, viol, risky = res.steps(
+                sl, use_mem, budget if fused_need else None)
             blk_audit = c["pend"] + audit + viol
             ok_carry = {**sl, "xs": xs, "vs": vs, "acc": acc_s, "rp": rp,
                         "shadow": shB, "step": step0 + sort_every,
@@ -1214,7 +1220,7 @@ def _make_spatial_resident_auto(
             more = b + 1 < blocks
             flags = [blk_audit.reshape(1)]
             if more:
-                flags.append(need_flags(ok_carry))
+                flags.append(need_flags(ok_carry, risky))
             vals = _fetch(*comm.all_reduce_sum(torch.cat(flags)))
             if vals[0] > 0:
                 # heal: re-run this block exactly on the per-step slab step

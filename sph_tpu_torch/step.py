@@ -31,7 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from sph_tpu_torch import neighbors, pallas_step, physics
+from sph_tpu_torch import neighbors, pallas_step, physics, slot_pass
 from sph_tpu_torch.params import Scene
 from sph_tpu_torch.platform import device_const, resolve_device
 from sph_tpu_torch.slot_kernels import LANE
@@ -247,100 +247,6 @@ def default_skin(scene: Scene, sort_every: int) -> float:
     return base
 
 
-# --- Membership-relaxed Verlet audit in slot space --------------------------
-#
-# With cells of edge h + skin, a pair with |xi − xj| < h stays inside the
-# ±1-cell window of the build while each endpoint either still bins into its
-# build cell or is within skin/2 of its build position (the reference's
-# proof, sph_tpu/step.py:216-235).  So a drift violation is real only once
-# the slot has also left its build cell.  Packed rows have no per-lane x
-# cell: their windows span whole neighbor rows, so x is membership-exempt
-# (its ref is None).  A slot array is [c_rows, C, lanes]; the refs are the
-# per-axis build-cell indices of every slot, broadcastable against a
-# [c_rows, lanes] plane.  Row 0 and pad rows carry build_addr's safe interior
-# code; their slots are masked by `movb` wherever the refs are consumed.
-
-
-def _slot_bin_refs(addr, sg) -> list:
-    """Per-axis BUILD-cell indices of every slot (see above); None for the
-    membership-exempt x axis of packed rows."""
-    code = addr.row_code
-    refs = []
-    if sg.dim == 3:
-        refs.append((code // sg.h1 - 1)[:, None])    # axis 0 (z): rows
-    refs.append(((code % sg.h1 if sg.dim == 3 else code) - 1)[:, None])
-    if sg.packed:
-        refs.append(None)                             # x unconstrained
-    else:
-        lane = torch.arange(sg.lanes, dtype=torch.int32, device=code.device)
-        refs.append((lane // sg.cap - sg.xc)[None, :])  # x: lanes
-    return refs
-
-
-def _slot_inside_bin(xs, refs, grid, ci_offset=None):
-    """[c_rows, 1, lanes] bool: the slot's CURRENT position still bins into
-    its build cell, with `neighbors.cell_index`'s floor and clip, so
-    'inside' is exactly 'a rebuild would bin it identically'.  `ci_offset`
-    (D ints) is a slab-local lattice's index shift (`decomp.py`): the refs
-    are local indices."""
-    cell = device_const(grid.cell, xs.dtype, xs.device)
-    ins = None
-    for a in range(xs.shape[1]):
-        if refs[a] is None:
-            continue
-        lo = device_const(grid.lo[a], xs.dtype, xs.device)
-        ci = torch.floor((xs[:, a, :] - lo) / cell).to(torch.int32)
-        if ci_offset is not None:
-            ci = ci - ci_offset[a]
-        ci = torch.clamp(ci, 0, grid.shape[a] - 1)
-        eq = ci == refs[a]
-        ins = eq if ins is None else ins & eq
-    return ins[:, None, :]
-
-
-def _slot_bin_margin(xs, refs, grid, ci_offset=None):
-    """[c_rows, 1, lanes]: distance to the nearest face of the slot's build
-    cell (negative once outside); an exempt axis contributes no face."""
-    m = None
-    for a in range(xs.shape[1]):
-        ref = refs[a]
-        if ref is None:
-            continue
-        if ci_offset is not None:
-            ref = ref + ci_offset[a]
-        lo_c = ref.to(xs.dtype) * grid.cell + grid.lo[a]
-        ma = torch.minimum(xs[:, a, :] - lo_c, lo_c + grid.cell - xs[:, a, :])
-        m = ma if m is None else torch.minimum(m, ma)
-    return m[:, None, :]
-
-
-def _membership_risky(c, grid, dd2, dt, sort_every, budget, ci_offset=None,
-                      extra_margin=None):
-    """[c_rows, 1, lanes] bool: the rebuild predicate's per-slot AND — the
-    next block's 1.2×-projected move can BOTH take the slot out of its
-    build cell (or past `extra_margin`, the slab-face distance of a
-    decomposition: leavers keep the strict budget) AND past the drift
-    budget.  The one definition for the single-device and slab advances."""
-    vs = c["vs"]
-    speed = torch.sqrt(torch.sum(vs * vs, dim=1, keepdim=True))
-    move = (1.2 * dt * sort_every) * speed
-    marg = _slot_bin_margin(c["xs"], c["refs"], grid, ci_offset)
-    if extra_margin is not None:
-        marg = torch.minimum(marg, extra_margin)
-    return c["movb"] & (marg < move) & (torch.sqrt(dd2) + move > budget)
-
-
-def _membership_bad(bad, xs, refs, grid, ci_offset=None, beyond=None):
-    """Relax a strict drift-audit mask by membership: a violation is real
-    only once the slot ALSO left its build cell — except where `beyond`
-    (a slab decomposition's beyond-the-face mask) holds, which keeps the
-    strict form."""
-    keep = ~_slot_inside_bin(xs, refs, grid, ci_offset)
-    if beyond is not None:
-        keep = keep | beyond
-    return bad & keep
-
-
 def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
                       ci_off=None):
     """(plan, apply) for MINORITY SLOT REPAIR (see
@@ -348,7 +254,7 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
     every particle's build anchor (the shadow's x, which the caller advances
     for repaired particles), `c["addr"]` its slot (its first `len(x0_p)`
     entries: a slab's addressing also holds its ghosts).  The risky test is
-    the particle-space mirror of `_membership_risky`, 1.2× projection
+    the particle-space mirror of `slot_pass.membership_risky`, 1.2× projection
     included.  `ci_off` is a slab-local lattice's index shift;
     `face_fn(x_now) -> (face_margin, allowed)` lets a slab fold its face
     distance into the margin and veto the repair of any particle outside
@@ -528,60 +434,9 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
     return plan, apply
 
 
-class _SlotPhysics:
-    """Elementwise physics in [c_rows, d, lanes] SLOT space — the exact
-    per-element arithmetic of physics.gravity_force / wall_penalty_force /
-    force_field_force / clamp_boundary, so integrating in slot space is
-    bitwise integrating in particle space."""
-
-    def __init__(self, scene: Scene, grid, sg, device: torch.device):
-        params = scene.params
-        f32 = torch.float32
-        self.scene = scene
-        self.params = params
-        self.grid = grid
-        self.sg = sg
-        self.d = d = params.dim
-        self.g3 = device_const(tuple(params.gravity), f32, device).reshape(
-            1, d, 1)
-        self.lo_w = (device_const(tuple(scene.lo), f32, device)
-                     + params.wall_eps).reshape(1, d, 1)
-        self.hi_w = (device_const(tuple(scene.hi), f32, device)
-                     - params.wall_eps).reshape(1, d, 1)
-        self.fields = [
-            (device_const(tuple(ff.pos), f32, device).reshape(1, d, 1), ff)
-            for ff in scene.force_fields
-        ]
-        self.zrow = torch.zeros((sg.c_rows, 3 - d, sg.lanes), device=device)
-
-    def body_forces(self, xs, vs, rho_s, f_s, step0, i: int):
-        """Gravity, wall penalty and force fields at step `step0 + i`."""
-        params = self.params
-        f = f_s + rho_s * self.g3
-        if params.boundary_mode == "penalty":
-            k_w, c_w = params.wall_stiffness, params.wall_damping
-            d_lo = torch.clamp(self.lo_w - xs, min=0.0)
-            d_hi = torch.clamp(xs - self.hi_w, min=0.0)
-            f = f + (k_w * d_lo - c_w * vs) * (d_lo > 0) - (
-                k_w * d_hi - c_w * (-vs)
-            ) * (d_hi > 0)
-        if self.fields:
-            step_i = step0 + i
-        for c, ff in self.fields:
-            dx = c - xs
-            r = torch.sqrt(torch.sum(dx * dx, dim=1, keepdim=True))
-            fall = torch.clamp(1.0 - r / ff.radius, min=0.0)
-            live = ((step_i >= ff.start_step)
-                    & (step_i < ff.stop_step)).to(xs.dtype)
-            dirn = dx / torch.clamp(r, min=1e-6)
-            f = f + (ff.strength * live) * fall * dirn
-        return f
-
-    def clamp_slot(self, xs, vs, movb):
-        hit = (xs < self.lo_w) | (xs > self.hi_w)
-        vs2 = torch.where(hit, vs * self.params.boundary_damping, vs)
-        xs2 = torch.minimum(torch.maximum(xs, self.lo_w), self.hi_w)
-        return torch.where(movb, xs2, xs), torch.where(movb, vs2, vs)
+class _SlotPhysics(slot_pass.SlotBody):
+    """`slot_pass.SlotBody` (the slot-space physics of the block body) with
+    the bf16 frame of the slots and the per-particle gather."""
 
     def slot_centers(self, addr):
         """[c_rows, d, lanes] fp32 cell centers of every slot, from the
@@ -603,37 +458,6 @@ class _SlotPhysics:
                  for a, r in enumerate(rows)]
         return torch.cat(parts + [cx[None, None, :].expand(shape)], dim=1)
 
-    def feat_builder(self, c):
-        """The kernels' per-step feature view of the carry's xs/vs (the
-        pad and flag columns are fixed for the block); bf16: relative to
-        the slot centers of the carry's addressing."""
-        if self.params.precision == "bf16":
-            return self.bf16_feat_builder(c["addr"])
-        mov = c["movb"].to(torch.float32)
-        tail = torch.cat([mov, torch.zeros_like(mov)], dim=1)
-        zrow = self.zrow
-
-        def mk_feat(xs_, vs_):
-            return torch.cat([xs_, zrow, vs_, zrow, tail], dim=1)
-
-        return mk_feat
-
-    def bf16_feat_builder(self, addr):
-        """The kernels' per-step bf16 view of the slot state: positions
-        relative to the slot centers, velocities absolute, rounded to bf16
-        (the fp32 state itself never leaves fp32)."""
-        sg, d = self.sg, self.d
-        dev = addr.row_code.device
-        centers = self.slot_centers(addr)
-        zrow = torch.zeros((sg.c_rows, 3 - d, sg.lanes), device=dev)
-        z2 = torch.zeros((sg.c_rows, 2, sg.lanes), device=dev)
-
-        def mk_feat(xs_, vs_):
-            return torch.cat([xs_ - centers, zrow, vs_, zrow, z2],
-                             dim=1).to(torch.bfloat16)
-
-        return mk_feat
-
     @staticmethod
     def gather(slot, ncomp: int, addr):
         """[N, ncomp] per-particle values of a [c_rows, C, lanes] slot
@@ -646,66 +470,58 @@ class _SlotPhysics:
 
 
 def _slot_steps(sp: _SlotPhysics, c, sort_every: int, half2: float,
-                use_mem: bool, grid, leap: bool, mk_feat, exchange=None,
-                rp_hook=None, ci_offset=None, beyond=None):
+                use_mem: bool, leap: bool, exchange=None, rp_hook=None,
+                ci_offset=None, faces=None, budget=None):
     """`sort_every` steps integrated in slot space from the carry `c`
-    (xs, vs, acc, x0s, movb, addr, ...), with the per-step drift audit.
-    Returns (xs, vs, acc, rp, violations) — the count a device scalar.
-    The leapfrog block-top kick uses `c["acc"]` (zeros on a fresh carry,
-    whose kick was pre-applied in particle space).
+    (xs, vs, acc, x0s, movb, addr, ...), with the per-step drift audit:
+    each step `slot_pass.slot_pre` (kick, drift, features), K1, K2 and
+    `slot_pass.slot_post` (body forces, integration, audit) on a fresh
+    `slot_pass.SlotBlock`, so the carry's arrays stay as they are.
+    Returns (xs, vs, acc, rp, violations, risky): xs and vs are views of
+    the block's feature array, the counts device scalars; `risky` (None
+    without a `budget`) counts the slots of the membership rebuild
+    predicate on the block's end (`slot_pass.membership_risky`, the
+    faces its extra margin), which the last slot_post computes.  The
+    leapfrog block-top kick uses `c["acc"]` (None on a fresh carry, whose
+    kick was pre-applied in particle space).
 
     The hooks of a slab (`decomp._SlabSlots`, whose carries hold an acc):
     `exchange(xs, vs)` writes the ghost slots in place after each step's
-    drift, except at step 0 of a carry marked `drifted` (its kick, drift
-    and exchange came before its build); `rp_hook(rp)` writes the ghosts'
-    (rho, p) into K1's rp before K2; the membership audit places the
-    slab-local lattice by `ci_offset` and keeps the strict budget where
-    `beyond(xs)`."""
+    drift, into the array K1 reads, except at step 0 of a carry marked
+    `drifted` (its kick, drift and exchange came before its build);
+    `rp_hook(rp)` writes the ghosts' (rho, p) into K1's rp before K2; the
+    membership audit places the slab-local lattice by `ci_offset` and keeps
+    the strict budget past the faces of `faces` (a `decomp._Slab`)."""
     params, d = sp.params, sp.d
     dt = params.dt
     addr, sg, movb = c["addr"], sp.sg, c["movb"]
-    mov = movb.to(torch.float32)
-    xs, vs, acc_s, x0s = c["xs"], c["vs"], c["acc"], c["x0s"]
-    step0 = c["step0"]
+    bf16 = params.precision == "bf16"
+    if bf16 and exchange is not None:
+        raise ValueError("the slab hooks take fp32 features")
+    centers = sp.slot_centers(addr) if bf16 else None
+    blk = slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, bf16, movb.device)
+    plan = slot_pass.PostPlan(sp, leap, half2, use_mem, ci_offset, faces,
+                              budget, sort_every)
+    xs, vs, acc = c["xs"], c["vs"], c["acc"]
     jb = c["jb"]
-    viol = None
     for i in range(sort_every):
-        if i or not c.get("drifted"):
-            if leap:
-                if acc_s is not None:
-                    vs = vs + (0.5 * dt) * acc_s * mov
-                xs = xs + dt * vs * mov
-            if exchange is not None:
-                if i == 0 and not leap:
-                    # nothing has written xs/vs yet, and the exchange
-                    # writes in place: not into the carry's own arrays
-                    xs, vs = xs.clone(), vs.clone()
-                exchange(xs, vs)
-        feat = mk_feat(xs, vs)
+        moved = bool(i) or not c.get("drifted")
+        kick = leap and moved and acc is not None
+        drift = leap and moved
+        if i == 0 or kick or drift or bf16:
+            slot_pass.slot_pre(blk, xs, vs, acc, movb, addr.gcounts,
+                               addr.n_occ, dt, kick, drift, i == 0, centers)
+        xs, vs, acc = blk.xs, blk.vs, blk.acc
+        if exchange is not None and moved:
+            exchange(xs, vs)
+        feat = blk.kernel_feat
         rp = pallas_step._call_density(feat, addr, sg, params, jb)
         if rp_hook is not None:
             rp_hook(rp)
         f_s = pallas_step._call_force(feat, rp, addr, sg, params, jb)
-        rho_s = rp[:, 0:1, :]
-        f_tot = sp.body_forces(xs, vs, rho_s, f_s[:, 0:d, :], step0, i)
-        a_s = torch.where(movb, f_tot / torch.clamp(rho_s, min=1e-12), 0.0)
-        if leap:
-            vs = vs + (0.5 * dt) * a_s
-        else:
-            vs = vs + dt * a_s * mov
-            xs = xs + dt * vs * mov
-        acc_s = a_s
-        if params.boundary_mode == "clamp":
-            xs, vs = sp.clamp_slot(xs, vs, movb)
-        dd = xs - x0s
-        drift2 = torch.sum(dd * dd, dim=1, keepdim=True)
-        bad_i = (drift2 > half2) & movb
-        if use_mem:
-            bad_i = _membership_bad(bad_i, xs, c["refs"], grid, ci_offset,
-                                    None if beyond is None else beyond(xs))
-        n_bad = torch.sum(bad_i, dtype=torch.int32)
-        viol = n_bad if viol is None else viol + n_bad
-    return xs, vs, acc_s, rp, viol
+        slot_pass.slot_post(blk, rp, f_s, c["x0s"], movb, addr, plan,
+                            c["step0"], i, i == sort_every - 1)
+    return xs, vs, acc, rp, blk.count, None if budget is None else blk.risky
 
 
 def _scatter_residency(x, v, act, movable, grid, sg, use_mem: bool,
@@ -722,7 +538,7 @@ def _scatter_residency(x, v, act, movable, grid, sg, use_mem: bool,
     return dict(
         addr=addr, xs=xs, vs=feat[:, 3:3 + d, :], x0s=xs,
         movb=feat[:, 6:7, :] > 0,
-        refs=_slot_bin_refs(addr, sg) if use_mem else None,
+        refs=slot_pass.slot_bin_refs(addr, sg) if use_mem else None,
         jb=pallas_step._jblocks(addr, sg) if sg.packed else None,
     )
 
@@ -815,9 +631,8 @@ def _make_resident_advance(
             FETCHES["blocks"] += 1
             c = _residency(s, grid, sg, d, dt, leap, use_mem)
             c["acc"] = None
-            xs, vs, a_s, rp, viol_blk = _slot_steps(
-                sp, c, sort_every, half2, use_mem, grid, leap,
-                sp.feat_builder(c))
+            xs, vs, a_s, rp, viol_blk, _ = _slot_steps(
+                sp, c, sort_every, half2, use_mem, leap)
             viol_blk = viol_blk + c["addr"].overflow
             c.update(xs=xs, vs=vs, acc=a_s, rp=rp)
             out = _materialize(sp, c, s, s.step + sort_every)
@@ -853,7 +668,7 @@ def _make_resident_auto_advance(
         `reactive_theta · skin/2`, with no projection;
       - the membership predicate (default): some slot's 1.2×-projected
         move can both take it out of its build cell and past the budget
-        `rebuild_frac · skin/2` (`_membership_risky`);
+        `rebuild_frac · skin/2` (`slot_pass.membership_risky`);
       - with `membership_audit=False`: max drift + 1.2 · max|v| · dt ·
         sort_every crosses the budget.
     `rebuild_frac=0` forces a rebuild at every moving block (a test knob).
@@ -936,7 +751,7 @@ def _make_resident_auto_advance(
         return dict(
             addr=addr, xs=xs, vs=torch.stack(flat[d:], dim=1), x0s=xs,
             movb=packed[:, d:d + 1, :] > 0,
-            refs=_slot_bin_refs(addr, sg) if use_mem else None,
+            refs=slot_pass.slot_bin_refs(addr, sg) if use_mem else None,
             jb=None, step0=s.step,
         )
 
@@ -961,18 +776,26 @@ def _make_resident_auto_advance(
             return s
         return _materialize(sp, c, s, s.step)
 
-    def need_of(c):
-        """(need, activated) device bools of the block that starts from `c`."""
+    # the membership predicate is counted by the block's last slot_post
+    fused_need = reactive_theta is None and use_mem and rebuild_frac > 0
+
+    def need_of(c, risky=None):
+        """(need, activated) device bools of the block that starts from
+        `c`; `risky`: the predicate's slots on `c`, counted by the block
+        that ended in it."""
         s = c["shadow"]
-        dd = c["xs"] - c["x0s"]
-        dd2 = torch.sum(dd * dd, dim=1, keepdim=True)
         activated = torch.any((s.emit_step > c["build_step"])
                               & (s.emit_step <= s.step))
+        if risky is not None:
+            return (risky > 0) | activated, activated
+        dd = c["xs"] - c["x0s"]
+        dd2 = torch.sum(dd * dd, dim=1, keepdim=True)
         if reactive_theta is not None:
             drift_now = torch.sqrt(torch.amax(dd2))
             need = (drift_now > reactive_theta * 0.5 * skin) | activated
-        elif use_mem and rebuild_frac > 0:
-            risky = _membership_risky(c, grid, dd2, dt, sort_every, budget)
+        elif fused_need:
+            risky = slot_pass.membership_risky(c, grid, dd2, dt, sort_every,
+                                               budget)
             need = torch.any(risky) | activated
         else:
             drift_now = torch.sqrt(torch.amax(dd2))
@@ -1028,9 +851,9 @@ def _make_resident_auto_advance(
                     c = rebuild(c)
                     rebuilds += 1
             c["step0"] = c["shadow"].step
-            xs, vs, acc_s, rp, viol_blk = _slot_steps(
-                sp, c, sort_every, half2, use_mem, grid, leap,
-                sp.feat_builder(c))
+            xs, vs, acc_s, rp, viol_blk, risky = _slot_steps(
+                sp, c, sort_every, half2, use_mem, leap,
+                budget=budget if fused_need else None)
             if c["pend_over"] is not None:
                 viol_blk = viol_blk + c["pend_over"]
             ok_carry = {
@@ -1041,7 +864,7 @@ def _make_resident_auto_advance(
                 "live": True,   # slot acc/rp real from now on
             }
             if more:
-                need_t, act_t = need_of(ok_carry)
+                need_t, act_t = need_of(ok_carry, risky)
                 bad, need = _fetch(viol_blk > 0, need_t)
             else:
                 (bad,) = _fetch(viol_blk > 0)

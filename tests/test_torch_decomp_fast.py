@@ -43,7 +43,7 @@ from sph_tpu import params as jpm
 from sph_tpu import pallas_step as jps
 from sph_tpu import step as jstep
 from sph_tpu.state import init as jinit
-from sph_tpu_torch import decomp, neighbors, pallas_step
+from sph_tpu_torch import decomp, neighbors, pallas_step, slot_pass
 from sph_tpu_torch import step as step_mod
 
 WORLD = 4
@@ -411,12 +411,12 @@ def test_slab_membership_helpers_match_reference(k_dev):
     off = (k_dev, 0)
     j_off = jnp.asarray(off, jnp.int32)
     xt, xj = torch.from_numpy(xs), jnp.asarray(xs)
-    ins = step_mod._slot_inside_bin(xt, t_refs, grid, off).numpy()
+    ins = slot_pass.slot_inside_bin(xt, t_refs, grid, off).numpy()
     ins_j = np.asarray(jstep._slot_inside_bin(xj, j_refs, jgrid, j_off))
     assert np.array_equal(ins, ins_j) and 0 < ins.mean() < 1
-    m = step_mod._slot_bin_margin(xt, t_refs, grid, off).numpy()
+    m = slot_pass.slot_bin_margin(xt, t_refs, grid, off).numpy()
     m_j = np.asarray(jstep._slot_bin_margin(xj, j_refs, jgrid, j_off))
     assert np.array_equal(m, m_j)
-    relaxed = step_mod._membership_bad(torch.from_numpy(bad), xt, t_refs,
+    relaxed = slot_pass.membership_bad(torch.from_numpy(bad), xt, t_refs,
                                        grid, off, torch.from_numpy(beyond))
     assert np.array_equal(relaxed.numpy(), bad & (~ins_j | beyond))

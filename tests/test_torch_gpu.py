@@ -16,7 +16,8 @@ import pytest
 import torch
 
 import sph_tpu_torch as port
-from sph_tpu_torch import neighbors, packed_kernels, slot_kernels, stage_kernels
+from sph_tpu_torch import neighbors, packed_kernels, slot_kernels, slot_pass
+from sph_tpu_torch import stage_kernels
 from sph_tpu_torch import pallas_step as ps
 from sph_tpu_torch import probe_vpu_bf16 as probe
 
@@ -339,19 +340,24 @@ def test_stage_transpose_matches_plain_version(dim, packed):
 @pytest.mark.gpu
 def test_production_default_on_card_goes_through_the_kernels():
     """`run(..., sort_every=4, slot_resident=True)`: K1/K2 once a step on
-    the slot layout plus 4 a healed block (its exact re-run), and the same
-    trajectory as on the host within the reference's trajectory bounds."""
+    the slot layout plus 4 a healed block (its exact re-run), the block's
+    passes once a step (slot_post) and once a block (slot_pre, whose
+    in-place steps Euler does not need), and the same trajectory as on the
+    host within the reference's trajectory bounds."""
     dev = _card()
     scene = port.preset("dam2d_10k")
     slot_kernels.reset_launches()
     packed_kernels.reset_launches()
+    slot_pass.reset_launches()
     audited = port.make_audited_advance(scene, "pallas", 16, sort_every=4,
                                         slot_resident=True, device=dev)
     state = audited(port.init(scene, device=dev))
     torch.cuda.synchronize()
     want = 16 + 4 * audited.healed
+    assert audited.mode != "perstep"   # no dispatch ran demoted
     assert slot_kernels.LAUNCHES == _slot_launches(want)
     assert packed_kernels.LAUNCHES == _packed_launches(0)
+    assert slot_pass.LAUNCHES == {"slot_pre": 4, "slot_post": 16}
     assert state.x.is_cuda and bool(torch.isfinite(state.x).all())
     host = port.make_audited_advance(scene, "pallas", 16, sort_every=4,
                                      slot_resident=True, device="cpu")

@@ -23,6 +23,7 @@ from sph_tpu.params import Block
 from sph_tpu.step import make_advance as ref_make_advance
 from sph_tpu_torch import neighbors as tnb
 from sph_tpu_torch import pallas_step as tps
+from sph_tpu_torch import slot_pass
 from sph_tpu_torch import step as port_step
 from test_torch_resident import AUTO, CPU, _agree, _emitting, _jet, _pair, _same
 
@@ -164,9 +165,10 @@ def test_repair_default_capacity_gate(name):
 @pytest.mark.parametrize("packed", [False, True], ids=["slot", "packed"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_membership_helpers_match_reference(dim, packed):
-    """`_slot_bin_refs`, `_slot_inside_bin`, `_slot_bin_margin` and
-    `_membership_risky` on the slot arrays of a cloud whose particles moved
-    after the build: equal to the reference's on every real slot."""
+    """`slot_bin_refs`, `slot_inside_bin`, `slot_bin_margin` and
+    `membership_risky` (`sph_tpu_torch.slot_pass`) on the slot arrays of a
+    cloud whose particles moved after the build: equal to the reference's
+    on every real slot."""
     n = 300
     x, v = random_cloud(n, dim, 0.0, 120.0, seed=61 + dim, vmax=300.0)
     x, v = x[:, :dim], v[:, :dim]
@@ -195,7 +197,7 @@ def test_membership_helpers_match_reference(dim, packed):
     xs = x0s + dt * rfeat[:, 3:3 + dim, :]
     vs = rfeat[:, 3:3 + dim, :]
     r_refs = ref_step._slot_bin_refs(raddr, rsg)
-    t_refs = port_step._slot_bin_refs(taddr, tsg)
+    t_refs = slot_pass.slot_bin_refs(taddr, tsg)
     assert len(r_refs) == len(t_refs) == dim
     for k, (a, b) in enumerate(zip(r_refs, t_refs)):
         exempt = packed and k == dim - 1      # packed rows: x has no ref
@@ -204,11 +206,11 @@ def test_membership_helpers_match_reference(dim, packed):
             ra, tb = np.broadcast_arrays(np.asarray(a), b.numpy())
             assert np.array_equal(ra, tb)
     r_in = np.asarray(ref_step._slot_inside_bin(jnp.asarray(xs), r_refs, rg))
-    t_in = port_step._slot_inside_bin(torch.from_numpy(xs), t_refs, tg).numpy()
+    t_in = slot_pass.slot_inside_bin(torch.from_numpy(xs), t_refs, tg).numpy()
     assert np.array_equal(r_in[:, 0][real], t_in[:, 0][real])
     assert 0 < (~t_in[:, 0][real]).sum() < real.sum()
     r_m = np.asarray(ref_step._slot_bin_margin(jnp.asarray(xs), r_refs, rg))
-    t_m = port_step._slot_bin_margin(torch.from_numpy(xs), t_refs, tg).numpy()
+    t_m = slot_pass.slot_bin_margin(torch.from_numpy(xs), t_refs, tg).numpy()
     assert np.array_equal(r_m[:, 0][real], t_m[:, 0][real])
     dd = xs - x0s
     dd2 = np.sum(dd * dd, axis=1, keepdims=True)
@@ -219,7 +221,7 @@ def test_membership_helpers_match_reference(dim, packed):
         r_c, raddr, rsg, rg, jnp.asarray(dd2), dt, 4, budget))
     t_c = dict(xs=torch.from_numpy(xs), vs=torch.from_numpy(vs),
                movb=torch.from_numpy(movb), refs=t_refs)
-    t_risky = port_step._membership_risky(
+    t_risky = slot_pass.membership_risky(
         t_c, tg, torch.from_numpy(dd2), dt, 4, budget).numpy()
     assert np.array_equal(r_risky, t_risky)
     assert t_risky.any()
