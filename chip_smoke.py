@@ -240,16 +240,18 @@ Phases, each printed as one JSON line:
               --steps-per-frame 250 (--method auto: 3 dispatches of 84)
               and --method pallas --steps-per-frame 101 (2 of 51), two
               frames each: metrics.jsonl's step 252, 504 and 102, 204
- 44. bench    the step at which dam2d_10k's classic resident4 row first
-              raises a skin violation, beyond the steps any row runs here;
-              `python -m sph_tpu_torch.cli bench --steps BENCH_STEPS`,
-              the whole table in one subprocess: exit 0, every row but the
-              two @settled ones at full size with n the scene's active
-              count, the @settled rows UNAVAILABLE: FileNotFoundError (their
-              checkpoints are not made), each row's ms/step and
-              particle-steps/s; the flagship row splash3d_1m/resident4auto
-              in this process through `bench_step.bench_one`: the staged
-              K1/K2 launched, no yardstick; and `--assert-floor --only
+ 44. bench    (after phases 46-50) the step at which dam2d_10k's classic
+              resident4 row first raises a skin violation, beyond the steps
+              any row runs here; `python -m sph_tpu_torch.cli bench --steps
+              BENCH_STEPS`, the whole table in one subprocess: exit 0,
+              every row at full size with n the scene's active count (the
+              two @settled rows from phase 46's checkpoints), each row's
+              ms/step and particle-steps/s; the flagship row
+              splash3d_1m/resident4auto in this process through
+              `bench_step.bench_one`: the staged K1/K2 launched, no
+              yardstick; emitters3d@settled/resident4auto the same way, on
+              packed rows (K3/K4) or slots (K1/K2) as `packed_fits` says at
+              its checkpoint; and `--assert-floor --only
               splash3d_1m/resident4auto` exits 0
  45. slot_pass  (run with phases 26 and 37) the resident block's two
               passes, slot_pre (kick, drift, the feature array) and
@@ -265,6 +267,32 @@ Phases, each printed as one JSON line:
               (CUDA events over host launches, graph replay), the plain
               versions', the block's first slot_pre, and the byte bound
               over the occupied groups
+ 46. settled  `python -m sph_tpu_torch.make_settled_state CONFIG`, a
+              subprocess for each of its two configs (exit 0), at the
+              reference's criteria: splash3d_1m at step 3000 with all
+              1,080,000 particles, finite, mean rho/rho0 in [0.90, 1.10],
+              max|v| < c0; emitters3d filled to at least 20,000 particles
+              at a step that is a multiple of 100, at most 120,000, finite;
+              process seconds and the maker's ms a step
+ 47. soak_1m  `soak_1m.soak(5000)` in this process: the soak-average,
+              healed, repaired, rebuilds, the cap-8 -> cap-16 switch step,
+              final mode, rho/rho0, max|v|, peak memory; finite, every
+              particle kept, rho/rho0 in [0.90, 1.10], max|v| < c0, the
+              switch by step 1000, heals in fewer than half the blocks,
+              repairs; K1/K2 once a step, the prime and 4 a healed block
+ 48. soak_spatial  `soak_spatial.soak(2000, shards=1)` in a one-rank NCCL
+              group of its own: n_act == n at every probe, finite, the
+              elastic recoveries counted; the launches as phase 47's
+ 49. soak_emitters  `soak_emitters.soak` of vortex2d (5000 steps: the
+              demotion to per step) and of emitters3d (EMITTERS_SOAK_STEPS
+              of the reference's 260,000, `reduced`; its final state saved
+              to out/, gitignored): finite, every emitted particle kept,
+              modes, healed, repaired; one layout's kernels a step
+ 50. spill, sweep  `measure_spill` (dam3d_100k, 3000 steps, cap 8) and
+              `bench_sweep` (dam3d_100k, 50 steps): caps 8, 16 and 32 each
+              run, no FAIL, K1/K2 launched as their plans imply; then K1/K2
+              on dam3d_100k's cap-32 lattice against their plain versions
+              and bitwise their yardsticks, with phase 3's times and bound
   Every path counts the passes' launches too: none off the resident
   paths; on them slot_post once a step and slot_pre once a step under
   leapfrog (once a block under Euler), unless a dispatch ran demoted.
@@ -380,7 +408,12 @@ DEPTH = {"dam3d_100k": 200, "splash3d_1m": 20, "emitters3d@settled": 200}
 SETTLED = Path(__file__).resolve().parent / "bench" / ".settled_emitters3d_full.npz"
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:      # when in the run each phase line was printed
+        obj = {**obj, "at_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -557,7 +590,7 @@ def phase_build():
           "staged_dynamic_smem_bytes": {
               f"{kind} cap {cap} xm {xm}": lib.slot_stage_bytes(force, cap, xm)
               for kind, force in (("K1", 0), ("K2", 1))
-              for cap, xm in ((16, 1), (8, 1), (8, 2))}})
+              for cap, xm in ((16, 1), (8, 1), (8, 2), (32, 1))}})
     from sph_tpu_torch import packed_kernels as pk
 
     emit({"phase": "build", "library": "packed_kernels", "kernels":
@@ -2062,13 +2095,14 @@ def decode_png(data: bytes) -> tuple[int, int]:
     return w, h
 
 
-def run_cli(argv: list, env=None) -> tuple:
+def run_cli(argv: list, env=None, module: str = "cli",
+            timeout: int = 600) -> tuple:
     """(returncode, stdout, stderr, seconds) of `python -m
-    sph_tpu_torch.cli argv` from the checkout's root."""
+    sph_tpu_torch.<module> argv` from the checkout's root."""
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "sph_tpu_torch.cli", *argv],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=600, env=env)
+    res = subprocess.run([sys.executable, "-m", f"sph_tpu_torch.{module}",
+                          *argv], cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout, env=env)
     return (res.returncode, res.stdout, res.stderr,
             time.perf_counter() - t0)
 
@@ -2347,20 +2381,24 @@ def bench_table(text: str) -> tuple:
 
 def bench_expected_n(dev, spd: int) -> dict:
     """Scene → the active counts its rows may report: the seeded count for
-    the scenes without emitters; for emitters3d, which starts empty, the
-    count emitted by some whole number of dispatches of `spd` steps."""
+    the scenes without emitters, and for splash3d_1m@settled its
+    checkpoint's; for emitters3d, which starts empty, and
+    emitters3d@settled, which goes on filling, the count emitted by some
+    whole number of dispatches of `spd` steps from the start."""
     import sph_tpu_torch as sph
-    from sph_tpu_torch import bench_step
+    from sph_tpu_torch import bench_step, make_settled_state as mss
 
     want = {}
     for name in sorted({n for n, _ in bench_step.CONFIGS}):
         if name.endswith("@settled"):
-            continue
-        scene = sph.preset(name)
-        state = sph.init(scene, device=dev)
+            state, scene = sph.load_checkpoint(
+                mss.settled_path(name[: -len("@settled")]), device=dev)
+        else:
+            scene = sph.preset(name)
+            state = sph.init(scene, device=dev)
         if scene.emitters:
-            e = state.emit_step.cpu()
-            want[name] = {int((e <= k * spd).sum())
+            e, at = state.emit_step.cpu(), int(state.step)
+            want[name] = {int((e <= at + k * spd).sum())
                           for k in range(1, 2 + 3 * 64 + 2)}
         else:
             want[name] = {int(state.n_active())}
@@ -2370,16 +2408,19 @@ def bench_expected_n(dev, spd: int) -> dict:
 def phase_bench(dev, smi: str) -> dict:
     """Phase 44, the bench subcommand on the card: `python -m
     sph_tpu_torch.cli bench --steps BENCH_STEPS` over the whole table in
-    one subprocess (exit 0; every row but the two @settled ones present,
-    with n the scene's active count: seeded, or for emitters3d emitted
-    by whole dispatches; the @settled rows `UNAVAILABLE:
-    FileNotFoundError`, their checkpoints not being made); each row's
-    ms/step and particle-steps/s printed.  First it finds where the
+    one subprocess (exit 0; every row present, the two @settled ones from
+    the checkpoints phase 46 made, with n the active count: seeded, the
+    settled checkpoint's, or for emitters3d and emitters3d@settled emitted
+    by whole dispatches); each row's ms/step and particle-steps/s printed.
+    First it finds where the
     classic resident4 row first raises at dam2d_10k (`first_violation`)
     and checks that no row here runs that far.  After the table, the
-    flagship row in this process through `bench_step.bench_one`, its launches read: the staged
-    K1/K2 ran and no yardstick did; then `--assert-floor --only
-    splash3d_1m/resident4auto` as a subprocess, which must exit 0."""
+    flagship row in this process through `bench_step.bench_one`, its
+    launches read: the staged K1/K2 ran and no yardstick did; the same for
+    emitters3d@settled/resident4auto, on packed rows (K3/K4) where
+    `packed_fits` says so at its checkpoint, else on slots (K1/K2); then
+    `--assert-floor --only splash3d_1m/resident4auto` as a subprocess,
+    which must exit 0."""
     from sph_tpu_torch import bench_step
 
     t0 = time.perf_counter()
@@ -2402,11 +2443,6 @@ def phase_bench(dev, smi: str) -> dict:
     for name, method in bench_step.CONFIGS:
         tag = f"{name}/{method}"
         row = rows.get(tag)
-        if name.endswith("@settled"):
-            check(isinstance(row, str)
-                  and row.startswith("UNAVAILABLE: FileNotFoundError"),
-                  f"{tag} is unavailable without its checkpoint")
-            continue
         check(isinstance(row, tuple), f"{tag} ran: {row}")
         n, ms, ps = row
         emit({"phase": "bench", "row": tag, "n": n, "ms_per_step": ms,
@@ -2435,6 +2471,34 @@ def phase_bench(dev, smi: str) -> dict:
           "no K3 or K5 on the flagship row")
     check(bench_step.FLOORS[BENCH_FLAGSHIP],
           "the flagship row has an H100 floor")
+    # the filled emitters3d row: packed rows where packed_fits says so at
+    # its checkpoint (K3/K4), the slot layout where not (K1/K2)
+    from sph_tpu_torch import load_checkpoint, make_settled_state as mss
+    from sph_tpu_torch import packed_fits
+
+    e_name = "emitters3d@settled"
+    ckpt, scene_e = load_checkpoint(mss.settled_path("emitters3d"),
+                                    device=dev)
+    fits = packed_fits(scene_e, ckpt, RESIDENT["sort_every"])
+    reset_counts()
+    ps_e, per_step_e, n_e = bench_step.bench_one(e_name, method, BENCH_STEPS,
+                                                 device=dev)
+    torch.cuda.synchronize()
+    e_launches = read_counts(f"bench {e_name}/{method}")
+    layout = "packed rows (K3/K4)" if fits else "slot layout (K1/K2)"
+    emit({"phase": "bench", "in_process": f"{e_name}/{method}", "n": n_e,
+          "checkpoint_particles": int(ckpt.n_active()),
+          "checkpoint_step": int(ckpt.step), "packed_fits": fits,
+          "layout": layout, "ms_per_step": per_step_e * 1e3,
+          "psteps_per_s": ps_e, "launches": e_launches})
+    # the row's leapfrog prime is one per-step K1/K2 on either layout
+    check(e_launches["packed_density"] > 0 and e_launches["slot_density"] == 1
+          if fits else e_launches["packed_density"] == 0
+          and e_launches["slot_density"] > 1,
+          f"{e_name}/{method} runs on the {layout}, as packed_fits says")
+    check(n_e in want[e_name], f"{e_name}: n={n_e} emitted from the "
+          f"checkpoint by whole dispatches")
+
     argv = ["bench", "--steps", str(BENCH_STEPS), "--assert-floor",
             "--only", f"{name}/{method}"]
     rc, out, err, secs = run_cli(argv)
@@ -2443,7 +2507,294 @@ def phase_bench(dev, smi: str) -> dict:
     check(rc == 0 and "REGRESSION" not in out,
           "the flagship row is above its floor")
     emit({"phase": "bench", "seconds": time.perf_counter() - t0})
-    return {"launches": launches}
+    return {"launches": launches, "settled_launches": e_launches,
+            "settled_layout": layout}
+
+
+# ---------------------------------------------------------------------------
+# The whole arc: the settled maker, the soaks, the cap-evidence tools
+# ---------------------------------------------------------------------------
+
+# the reference's depths (bench/soak_1m.py, soak_spatial.py,
+# soak_emitters.py, measure_spill.py, bench_sweep.py defaults), but for
+# emitters3d's soak: 260,000 steps do not fit the smoke's time, and its
+# first 78,500 are the settled maker's emitters3d fill (the same advance
+# from the same init), so the smoke runs its start
+SOAK_1M_STEPS, SOAK_SPATIAL_STEPS, VORTEX_STEPS = 5000, 2000, 5000
+EMITTERS_SOAK_STEPS, EMITTERS_FULL_STEPS = 10_000, 260_000
+SPILL_ARGS, SWEEP_ARGS = ("dam3d_100k", 3000, 8), ("dam3d_100k", 50)
+SOAK_OUT = ROOT / "out" / "soak_emitters3d.npz"     # gitignored
+
+
+def soak_launches(launches: dict) -> dict:
+    """The launch counts a soak reports beside the kernels' other paths."""
+    return {k: launches[k] for k in ("slot_density", "slot_force", "slot_pre",
+                                     "slot_post", "packed_density",
+                                     "packed_force")}
+
+
+def in_process(fn):
+    """(fn()'s result, its stdout lines, its stderr notes) with the counts
+    set to 0 just before and read just after, and the card synchronized."""
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        res = fn()
+    torch.cuda.synchronize()
+    return res, out.getvalue().splitlines(), err.getvalue().splitlines()
+
+
+def phase_settled(dev, smi: str) -> dict:
+    """`python -m sph_tpu_torch.make_settled_state CONFIG` for each config
+    of its table, a subprocess each (exit 0), at the reference's criteria;
+    then each checkpoint loaded and checked: splash3d_1m at step 3000 with
+    every one of its 1,080,000 particles, finite, mean rho/rho0 in [0.90,
+    1.10], max|v| < c0; emitters3d with at least 20,000 active at a step
+    that is a multiple of 100, at most 120,000, finite.  Wall seconds of
+    each process and ms a step by the maker's own clock."""
+    from sph_tpu_torch import load_checkpoint
+    from sph_tpu_torch import make_settled_state as mss
+    from sph_tpu_torch.diagnostics import active_max_abs_v
+
+    out = {}
+    for config, (path, crit) in mss.SETTLED.items():
+        rc, so, se, secs = run_cli([config], module="make_settled_state",
+                                   timeout=900)
+        lines = so.strip().splitlines()
+        check(rc == 0, f"make_settled_state {config} exits 0: {se[-400:]}")
+        prog = [re.search(r"step\s+(\d+)\s.*wall\s+([\d.]+)s", ln)
+                for ln in lines]
+        prog = [m for m in prog if m][-1]
+        state, scene = load_checkpoint(path, device=dev)
+        hl, step = health(state, scene), int(state.step)
+        c0 = scene.params.sound_speed
+        res = out[config] = {
+            "phase": "settled", "config": config, "criteria": crit,
+            "path": str(Path(path).relative_to(ROOT)), "rc": rc,
+            "process_seconds": secs, "step": step, **hl,
+            "max_abs_v": active_max_abs_v(state),
+            "maker_ms_per_step": float(prog.group(2))
+            / int(prog.group(1)) * 1e3,
+            "maker_ms_per_step_note": "the maker's own wall clock at its "
+                                      "last progress line, over its steps",
+            "lines": lines[-3:], "nvidia_smi": smi}
+        emit(res)
+        check(hl["finite"], f"finite settled {config}")
+        if "n_steps" in crit:
+            check(step == crit["n_steps"]
+                  and hl["particles"] == int(state.n_active()) == 1_080_000,
+                  f"{config}: step 3000, every particle")
+            check(0.90 <= hl["rho_mean_over_rest"] <= 1.10,
+                  f"{config}: mean rho/rho0 settled")
+            check(res["max_abs_v"] < c0, f"{config}: max|v| < c0")
+        else:
+            check(hl["particles"] >= crit["min_active"]
+                  and step % 100 == 0 and step <= crit["max_steps"],
+                  f"{config}: filled to min_active within max_steps")
+    return out
+
+
+def phase_soak_1m(dev, smi: str) -> dict:
+    """`soak_1m.soak(5000)`, the flagship's whole arc on the production
+    default with the cap-8 policy: the soak-average, healed, repaired,
+    rebuilds, the step of the cap switch and the final mode, rho/rho0 and
+    max|v| at the end, the peak memory; a healthy finish with every
+    particle kept; the regime the reference recorded: the switch to the
+    default cap early, heals in a minority of the blocks, repairs; K1/K2
+    launched once a step, once for the prime and 4 more a healed block,
+    slot_pre/slot_post once a step."""
+    from sph_tpu_torch import preset, soak_1m
+
+    scene, n = preset("splash3d_1m"), SOAK_1M_STEPS
+    base = torch.cuda.memory_allocated()
+    res, lines, notes = in_process(lambda: soak_1m.soak(n, device=dev))
+    launches = read_counts("soak_1m")
+    hl = health(res["state"], scene)
+    # the first step of the dispatch that outgrew cap 8 (the policy's note)
+    switch = next((s - soak_1m.SPD for s, m in res["modes"] if m != "cap8"),
+                  None)
+    blocks = n // RESIDENT["sort_every"]
+    out = {"phase": "soak_1m", "steps": n,
+           **{k: res[k] for k in ("n", "n_final", "timed_steps", "timed_s",
+                                  "psteps_per_s", "ms_per_step", "healed",
+                                  "repaired", "rebuilds", "mode", "modes",
+                                  "max_abs_v", "peak_bytes")},
+           "switch_step": switch, "rho_mean_over_rest": hl[
+               "rho_mean_over_rest"], "max_speed": hl["max_speed"],
+           "bytes_held_before": base, "launches": soak_launches(launches),
+           "lines": lines, "notes": len(notes), "nvidia_smi": smi}
+    emit(out)
+    check(hl["finite"] and res["n_final"] == res["n"] == hl["particles"]
+          == 1_080_000, "soak_1m: finite, every particle kept")
+    check(0.90 <= hl["rho_mean_over_rest"] <= 1.10
+          and res["max_abs_v"] < scene.params.sound_speed,
+          "soak_1m: a healthy finish (rho/rho0 settled, max|v| < c0)")
+    check(switch is not None and switch <= 1000 and res["mode"] == "cap16",
+          "soak_1m: the cap-8 policy switches to the default cap early")
+    check(0 < res["healed"] < blocks // 2 and res["repaired"] > 0,
+          "soak_1m: heals in a minority of blocks, repairs")
+    check(launches["slot_density"] == launches["slot_force"]
+          == n + 1 + 4 * res["healed"] and launches["packed_density"] == 0,
+          "soak_1m: K1/K2 once a step, the prime, 4 a healed block")
+    check_slot_pass("soak_1m", launches, n, scene,
+                    [m for _, m in res["modes"]])
+    return out
+
+
+def phase_soak_spatial(dev, smi: str) -> dict:
+    """`soak_spatial.soak(2000, shards=1)` in a one-rank NCCL group of its
+    own: every probe with all 1,080,000 particles, finite, the count of
+    elastic recoveries and the host seconds a re-spec and re-shard of the
+    final state take; K1/K2 (split, slab-local) launched once a step, once
+    for the prime and 4 more a healed block when no recovery re-ran a
+    dispatch."""
+    from sph_tpu_torch import preset, soak_spatial
+    from sph_tpu_torch.diagnostics import active_max_abs_v
+
+    scene, n = preset("splash3d_1m"), SOAK_SPATIAL_STEPS
+    res, lines, notes = in_process(
+        lambda: soak_spatial.soak(n, 1, device=dev))
+    launches = read_counts("soak_spatial")
+    hl = health(res["state"], scene)
+    # what an elastic recovery costs at 1 M besides its re-run: the
+    # re-spec and re-shard of the gathered state on the host
+    from sph_tpu_torch import comm, decomp, default_skin
+
+    with comm.joined(comm.backend_for(dev), alone=True):
+        t0 = time.perf_counter()
+        spec = decomp.SpatialSpec.for_state(
+            scene, res["state"], 1, skin=default_skin(scene, 4))
+        decomp.spatial_shard_state(res["state"], scene, spec, dev)
+        torch.cuda.synchronize()
+        respec_s = time.perf_counter() - t0
+    out = {"phase": "soak_spatial", "steps": n, "shards": 1,
+           **{k: res[k] for k in ("n", "n_final", "timed_steps", "timed_s",
+                                  "psteps_per_s", "ms_per_step",
+                                  "recoveries", "healed", "repaired",
+                                  "rebuilds", "mode", "probes",
+                                  "peak_bytes")},
+           "rho_mean_over_rest": hl["rho_mean_over_rest"],
+           "max_abs_v": active_max_abs_v(res["state"]),
+           "respec_reshard_s": respec_s,
+           "launches": soak_launches(launches), "lines": lines,
+           "notes": notes[-6:], "nvidia_smi": smi}
+    emit(out)
+    check(res["finite"] and hl["finite"], "soak_spatial: finite")
+    check(len(res["probes"]) == n // 500 and all(
+        p["n_act"] == res["n"] == 1_080_000 for p in res["probes"])
+        and res["n_final"] == res["n"], "soak_spatial: n_act == n at every "
+        "probe")
+    check(not torch.distributed.is_initialized(),
+          "soak_spatial: its group is gone with it")
+    if not res["recoveries"]:
+        check(launches["slot_density"] == launches["slot_force"]
+              == n + 1 + 4 * res["healed"],
+              "soak_spatial: K1/K2 once a step, the prime, 4 a healed block")
+    check(launches["slot_post"] > 0, "soak_spatial: the resident passes ran")
+    return out
+
+
+def phase_soak_emitters(dev, smi: str) -> dict:
+    """`soak_emitters.soak` of vortex2d at its 5000 steps (the constant-heal
+    demotion the reference records: per step after two all-heal
+    dispatches) and of emitters3d at EMITTERS_SOAK_STEPS (a cut, `reduced`)
+    with its final state saved under out/: each finite with every
+    particle kept, its mode changes, healed and repaired; K1/K2 once a step
+    and 4 more a healed block (emitters3d's packed steps on K3/K4)."""
+    from sph_tpu_torch import init, preset, soak_emitters
+
+    out = {}
+    SOAK_OUT.parent.mkdir(exist_ok=True)
+    for config, n, save in (("vortex2d", VORTEX_STEPS, None),
+                            ("emitters3d", EMITTERS_SOAK_STEPS, SOAK_OUT)):
+        scene = preset(config)
+        s0 = init(scene, device=dev)
+        res, lines, notes = in_process(lambda: soak_emitters.soak(
+            config, n, str(save) if save else None, device=dev))
+        launches = read_counts(f"soak_emitters {config}")
+        hl = health(res["state"], scene)
+        want_n = int((s0.emit_step <= n).sum())
+        primes = int(scene.params.integrator == "leapfrog")
+        r = out[config] = {
+            "phase": "soak_emitters", "config": config, "steps": n,
+            **{k: res[k] for k in ("n_final", "timed_steps", "timed_s",
+                                   "ms_per_step", "healed", "repaired",
+                                   "rebuilds", "repair_k", "mode", "modes",
+                                   "max_abs_v", "rho_mean", "peak_bytes")},
+            "rho_mean_over_rest": res["rho_mean"] / scene.params.rest_density,
+            "max_speed": hl["max_speed"], "launches": soak_launches(launches),
+            "lines": lines, "notes": notes[-6:], "nvidia_smi": smi}
+        if config == "emitters3d":
+            r["saved"] = str(SOAK_OUT.relative_to(ROOT))
+            r["reduced"] = {"steps": n, "of": EMITTERS_FULL_STEPS,
+                            "why": "the smoke's time limit; the full soak "
+                                   "runs outside the smoke"}
+        emit(r)
+        check(hl["finite"] and res["n_final"] == want_n == hl["particles"],
+              f"soak_emitters {config}: finite, every emitted particle kept")
+        slot_steps = launches["slot_density"] - primes - 4 * res["healed"]
+        check(launches["slot_force"] == launches["slot_density"]
+              and launches["packed_force"] == launches["packed_density"]
+              and launches["packed_density"] + slot_steps == n,
+              f"soak_emitters {config}: one layout a step, the prime, 4 a "
+              f"healed block")
+        if config == "vortex2d":
+            check("perstep" in [m for _, m in res["modes"]],
+                  "vortex2d: the constant-heal demotion to per step")
+        else:
+            check(SOAK_OUT.exists() and launches["packed_density"] > 0,
+                  "emitters3d: packed rows ran, the state saved")
+    return out
+
+
+def phase_spill_sweep(dev, smi: str) -> dict:
+    """`measure_spill` (dam3d_100k, 3000 steps, cap 8: its counts and
+    WORST) and `bench_sweep` (dam3d_100k, 50 steps: caps 8, 16 and 32 each
+    run, no FAIL), each with its launches; then K1/K2 on the cap-32 lattice
+    of dam3d_100k's step 0 against their plain versions and bitwise their
+    yardsticks (phase 3's checks, times, bound)."""
+    from sph_tpu_torch import bench_sweep, measure_spill, neighbors, preset
+
+    name, n_steps, cap = SPILL_ARGS
+    res, lines, _ = in_process(
+        lambda: measure_spill.measure(name, n_steps, cap, device=dev))
+    launches = read_counts("measure_spill")
+    spill = {"phase": "spill", "config": name, "steps": n_steps, "cap": cap,
+             **{k: res[k] for k in ("worst_spilled", "worst_max_occ",
+                                    "worst_spilled2")},
+             "rows": res["rows"], "launches": soak_launches(launches),
+             "lines": lines[-2:]}
+    emit(spill)
+    check(len(res["rows"]) == n_steps // 100 and lines[-1].startswith(
+        "WORST over"), "measure_spill: a count a dispatch, the WORST line")
+    check(launches["slot_density"] == launches["slot_force"] == n_steps + 1,
+          "measure_spill: K1/K2 once a step and the prime")
+
+    name, steps = SWEEP_ARGS
+    rows, lines, _ = in_process(
+        lambda: bench_sweep.sweep(name, steps, device=dev))
+    launches = read_counts("bench_sweep")
+    sweep = {"phase": "sweep", "config": name, "steps": steps,
+             "rows": [{k: v for k, v in r.items() if k != "state"}
+                      for r in rows],
+             "launches": soak_launches(launches), "lines": lines,
+             "nvidia_smi": smi}
+    emit(sweep)
+    check([r["cap"] for r in rows] == list(bench_sweep.CAPS)
+          and not any("fail" in r for r in rows)
+          and not any("FAIL" in ln for ln in lines),
+          "bench_sweep: caps 8, 16 and 32 each run, no FAIL")
+    check(all(bool(torch.isfinite(r["state"].x).all()) for r in rows),
+          "bench_sweep: finite at every cap")
+    check(launches["slot_density"] == launches["slot_force"]
+          == len(rows) * (2 * steps + 1),
+          "bench_sweep: K1/K2 once a step and the prime, at each cap")
+    scene = preset(name)
+    grid32 = neighbors.GridSpec.for_scene(scene, cap=32)
+    at32 = phase_kernels(name, dev, grid=grid32, lattice="cap 32")
+    return {"spill": spill, "sweep": sweep, "at_cap32": at32,
+            "sweep_launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3845,7 +4196,27 @@ def main() -> int:
     phase_cli_shards()
     # this slice: the command line's frame split, and the bench
     phase_cli_frames()
+    # this slice: the whole arc — the settled checkpoints (which the
+    # bench's @settled rows read), the soaks, the cap-evidence tools
+    phase_settled(dev, smi)
+    soaks = {"soak_1m": phase_soak_1m(dev, smi),
+             "soak_spatial": phase_soak_spatial(dev, smi),
+             **{f"soak_emitters {c}": r for c, r in
+                phase_soak_emitters(dev, smi).items()}}
+    tools = phase_spill_sweep(dev, smi)
     bench = phase_bench(dev, smi)
+    soak_counts = {
+        **{k: r["launches"] for k, r in soaks.items()},
+        "measure_spill": tools["spill"]["launches"],
+        "bench_sweep": tools["sweep_launches"],
+        f"bench emitters3d@settled ({bench['settled_layout']})": {
+            k: bench["settled_launches"][k] for k in (
+                "slot_density", "slot_force", "slot_pre", "slot_post",
+                "packed_density", "packed_force")}}
+
+    def soak_of(name):
+        return {"soaks": {k: c[name] for k, c in soak_counts.items()},
+                "settled_maker": "a subprocess: its launches are not read"}
 
     def resident(name):
         return {"resident4auto": {
@@ -3880,6 +4251,10 @@ def main() -> int:
                 for p in ("dam3d_100k", "splash3d_1m")},
             **resident(name),
             "bench": {"/".join(BENCH_FLAGSHIP): bench["launches"][name]},
+            "at_cap32": {"preset": "dam3d_100k", "lattice": "cap 32",
+                         "launches": tools["sweep_launches"][name],
+                         **tools["at_cap32"][name]},
+            **soak_of(name),
             "at_slab": {"lattice": "slab-local, rank 1 of 4, dam3d_100k",
                         **at_slab[name]},
             "at_slab_skinned": {
@@ -3929,6 +4304,7 @@ def main() -> int:
                            "launches": runs["reuse"]["launches"][name],
                            **at_reuse[name]},
             **resident(name),
+            **soak_of(name),
         })
     name = "stage_transpose"
     kernels.append({
@@ -3965,6 +4341,7 @@ def main() -> int:
             **resident(name),
             "decomposed": {f"decomp_fast {p}": fast_runs[p]["launches"][name]
                            for p in ("dam3d_100k", "splash3d_1m")},
+            **soak_of(name),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

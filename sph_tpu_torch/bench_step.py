@@ -16,7 +16,8 @@ whatever the device, and `--assert-floor` then exits 1.  A row that raises
 prints `UNAVAILABLE: <exception>` and the table goes on, as in the
 reference: the two `@settled` rows read checkpoints that are made on
 demand and not committed (`bench/.settled_1m_3000.npz`,
-`bench/.settled_emitters3d.npz`), and without them they say
+`bench/.settled_emitters3d.npz`, by `python -m
+sph_tpu_torch.make_settled_state`), and without them they say
 `UNAVAILABLE: FileNotFoundError`.  The device is `--device` (default
 `cuda`): with no card the command exits 1 with one line, and it runs on
 the CPU (the kernels' plain versions) only when `--device cpu` asks.
@@ -39,13 +40,17 @@ import json
 import os
 import sys
 import time
-from pathlib import Path
 
 import torch
 
 from sph_tpu_torch import comm, decomp, diagnostics
+from sph_tpu_torch.make_settled_state import settled_path
 from sph_tpu_torch.params import preset
-from sph_tpu_torch.platform import device_arg, resolve_device
+from sph_tpu_torch.platform import (
+    add_device_flag,
+    entry_device,
+    resolve_device,
+)
 from sph_tpu_torch.state import init
 from sph_tpu_torch.step import (
     default_repair_k,
@@ -61,10 +66,12 @@ from sph_tpu_torch.step import (
 # 700.00 W (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`),
 # at the default --steps 100, minus ~30%, the slack of the reference's
 # floors.  Keys are the reference's; its values are TPU figures and none is
-# kept.  The two @settled rows have no floor: their checkpoints are not
-# made yet, so they were never measured here.  emitters3d starts empty and
-# its n follows the steps a row's chain runs (272-476 particles), so its
-# rate does too.
+# kept.  The two @settled rows start from the checkpoints that
+# `make_settled_state` makes (their floors: four runs in one call, each
+# its own process, after one make of the checkpoints).  emitters3d starts
+# empty and its n follows the steps a row's chain runs (272-476
+# particles), so its rate does too; emitters3d@settled goes on filling
+# from 20,024 (21,212-21,824 in those runs).
 FLOORS = {
     ("tutorial2d", "naive"): 8.5e+05,                 # median 1.22e+06 of 4
     ("dam2d_10k", "grid"): 1.7e+06,                   # median 2.42e+06 of 4
@@ -91,9 +98,9 @@ FLOORS = {
     ("splash3d_1m", "auto8"): 1.3e+08,                # median 1.9e+08 of 4
     ("splash3d_1m", "spatial-resident4"): 1.7e+08,    # median 2.41e+08 of 4
     ("splash3d_1m", "spatial-resident4auto"): 1.5e+08,  # median 2.12e+08 of 4
-    ("splash3d_1m@settled", "resident4auto"): None,
+    ("splash3d_1m@settled", "resident4auto"): 2.4e+08,  # median 3.39e+08 of 4
     ("emitters3d", "pallas"): 1.4e+05,                # median 2.04e+05 of 4
-    ("emitters3d@settled", "resident4auto"): None,
+    ("emitters3d@settled", "resident4auto"): 3.2e+07,   # median 4.5e+07 of 4
     ("vortex2d", "audited4"): 7.6e+06,                # median 1.08e+07 of 4
 }
 
@@ -136,14 +143,6 @@ CONFIGS = [
 #: each row here does the work of the reference's row.  It is no rule of
 #: `run()`, whose dispatches are not clamped (ROADMAP Queue 3 item 4).
 BENCH_DISPATCH = 100
-
-#: The settled checkpoints of the @settled rows: the reference's paths
-#: (bench/make_settled_state.py:47-53), made on demand, not committed.
-_BENCH_DIR = Path(__file__).resolve().parent.parent / "bench"
-SETTLED = {
-    "splash3d_1m": _BENCH_DIR / ".settled_1m_3000.npz",
-    "emitters3d": _BENCH_DIR / ".settled_emitters3d.npz",
-}
 
 #: Seconds of work a timed window holds (see `timed_chain`).
 CHAIN_TARGET_S = 1.0
@@ -308,8 +307,9 @@ def bench_one(name, method, steps, repeats=3, device=None):
     if method == "auto8":
         return bench_auto8(name, steps, repeats, device=device)
     if name.endswith("@settled"):
+        # the settled maker's table, as the reference bench reads it
         state, scene = diagnostics.load_checkpoint(
-            str(SETTLED[name[: -len("@settled")]]), device=device)
+            settled_path(name[: -len("@settled")]), device=device)
     else:
         scene = preset(name)
         state = init(scene, device=device)
@@ -372,14 +372,10 @@ def main(argv=None) -> int:
                     help="directory for a torch.profiler trace of each row")
     ap.add_argument("--assert-floor", action="store_true")
     ap.add_argument("--only", default=None, help="substring filter")
-    ap.add_argument("--device", default="cuda", type=device_arg,
-                    help="cuda (default; exits when there is no card), "
-                         "cuda:K, or cpu (the kernels' plain versions)")
+    add_device_flag(ap)
     args = ap.parse_args(argv)
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        print(str(e), file=sys.stderr)
+    device = entry_device(args.device)
+    if device is None:
         return 1
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)

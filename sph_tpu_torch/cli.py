@@ -23,8 +23,9 @@ reference's rows and timing at full preset sizes, on the card by default
 (`--device cpu` runs it on the host with the kernels' plain versions, as
 slowly as that is); `--assert-floor` exits 1 when a row is under its H100
 floor.  Its two `@settled` rows read `bench/.settled_1m_3000.npz` and
-`bench/.settled_emitters3d.npz`, which are not committed; without them
-they print `UNAVAILABLE: FileNotFoundError`.
+`bench/.settled_emitters3d.npz`, which are not committed (`python -m
+sph_tpu_torch.make_settled_state` makes them); without them they print
+`UNAVAILABLE: FileNotFoundError`.
 
 A decomposed run or record (`--shards N` slabs, `--shards N1xN2` pencils)
 is one process per rank:
@@ -59,7 +60,11 @@ from sph_tpu_torch.params import (
     preset_names,
     scene_from_json,
 )
-from sph_tpu_torch.platform import device_arg, resolve_device
+from sph_tpu_torch.platform import (
+    add_device_flag,
+    device_arg,
+    resolve_device,
+)
 from sph_tpu_torch.state import init
 from sph_tpu_torch.state import spawn as spawn_particles
 from sph_tpu_torch.step import make_audited_advance, prime
@@ -857,9 +862,7 @@ def main(argv=None) -> int:
     benchp.add_argument("--steps", type=int, default=100)
     benchp.add_argument("--only", default=None)
     benchp.add_argument("--assert-floor", action="store_true")
-    benchp.add_argument("--device", default="cuda", type=device_arg,
-                        help="cuda (default; exits when there is no card), "
-                             "cuda:K, or cpu (the kernels' plain versions)")
+    add_device_flag(benchp)
 
     args = ap.parse_args(argv)
     if args.cmd == "presets":

@@ -57,6 +57,20 @@ def scalar_pack(state: State, params: SimParams) -> torch.Tensor:
                         mom3[1], mom3[2], ke, n_true])
 
 
+def active_rho_mean(state: State, floor: int = 0) -> float:
+    """Mean ρ over the active particles, the divisor at least `floor` (the
+    soaks' `rho_mean`)."""
+    act = state.active
+    return float(torch.sum(torch.where(act, state.rho, 0.0))
+                 / max(int(act.sum()), floor))
+
+
+def active_max_abs_v(state: State) -> float:
+    """max |v_k| over the active particles' components (the soaks' and the
+    settled maker's max|v|)."""
+    return float(torch.where(state.active[:, None], state.v.abs(), 0.0).max())
+
+
 def scalars_dict(pack) -> dict:
     if isinstance(pack, torch.Tensor):
         pack = pack.detach().cpu().numpy()

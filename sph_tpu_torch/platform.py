@@ -42,3 +42,22 @@ def device_arg(text: str) -> str:
         return text
     raise argparse.ArgumentTypeError(
         f"invalid device {text!r} (cuda, cuda:K or cpu)")
+
+
+def add_device_flag(ap: argparse.ArgumentParser) -> None:
+    """The `--device` flag of the port's entry points."""
+    ap.add_argument("--device", default="cuda", type=device_arg,
+                    help="cuda (default; exits when there is no card), "
+                         "cuda:K, or cpu (the kernels' plain versions)")
+
+
+def entry_device(text: str):
+    """An entry point's device from its `--device`, or None after one line
+    on stderr saying why there is none (the caller then exits 1)."""
+    import sys
+
+    try:
+        return resolve_device(text)
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return None

@@ -436,6 +436,30 @@ def test_staged_kernels_bitwise_simple_with_holes(dim, cap, xsub, bf16):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cap32_kernels_bitwise_simple_and_plain(dim):
+    """The staged K1/K2 on a cap-32 lattice (`bench_sweep`'s widest: a
+    staged row's window is 128 + 2·32 slots) give the simple kernels' bits,
+    agree with their plain versions at the fp32 tolerances, and count one
+    launch each."""
+    dev = _card()
+    params, sg, addr, feat = _slots(dim, 32, {}, dev,
+                                    n=2500 if dim == 2 else 20000,
+                                    seed=90 + dim)
+    assert sg.cap == 32 and int(addr.overflow) == 0
+    # cells past cap 16, which only the cap-32 lattice holds
+    occ = (feat[:, 0].reshape(feat.shape[0], -1, 32) < 1e17).sum(-1)
+    assert int((occ > 16).sum()) > 0
+    rp, f = _staged_vs_simple(params, sg, feat, addr)
+    args = (addr.n_occ, addr.nbr_pos, addr.gcounts, sg.cap, params)
+    rp_p = slot_kernels.density_plain(feat, *args)
+    f_p = slot_kernels.force_plain(feat, rp, *args)
+    assert torch.allclose(rp[:, 0], rp_p[:, 0], rtol=RHO_RTOL, atol=RHO_ATOL)
+    scale = float(f_p.abs().max())
+    assert scale > 0 and float((f - f_p).abs().max()) / scale < FTOL
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_staged_kernels_bitwise_simple_at_the_edges(dim, bf16):

@@ -39,7 +39,10 @@ def test_import_pulls_in_neither_jax_nor_sph_tpu():
         "sph_tpu_torch.probe_vpu_bf16, sph_tpu_torch.cli, "
         "sph_tpu_torch.render, sph_tpu_torch.io_native, "
         "sph_tpu_torch.neighbors, sph_tpu_torch.comm, "
-        "sph_tpu_torch.decomp\n"
+        "sph_tpu_torch.decomp, sph_tpu_torch.make_settled_state, "
+        "sph_tpu_torch.soak_1m, sph_tpu_torch.soak_emitters, "
+        "sph_tpu_torch.soak_spatial, sph_tpu_torch.measure_spill, "
+        "sph_tpu_torch.bench_sweep\n"
         "import pkgutil\n"
         "for m in pkgutil.iter_modules(sph_tpu_torch.__path__):\n"
         "    __import__('sph_tpu_torch.' + m.name)\n"
