@@ -142,7 +142,7 @@ Phases, each printed as one JSON line:
               NCCL world at dam2d_10k, 10 steps: bitwise the naive step
               (x, v, acc, rho, p); ms/step of both
  32. decomp_slab  run(scene, n, method="pallas", shards=1) in the same
-              world at dam3d_100k (200 steps) and splash3d_1m (20), one
+              world at dam3d_100k (100 steps) and splash3d_1m (20), one
               dispatch: K1/K2 through the split API on the slab-local
               lattice, launched n + 1 times (prime included), one spec
               (no overflow, no re-spec), health, and against the
@@ -165,7 +165,8 @@ Phases, each printed as one JSON line:
               launched 101 times a rank, ranks 1-3 on shifted lattices,
               one spec; the gathered state's health and, against the
               single-device per-step run, the active count exactly and x
-              within 1e-4 of scale by nearest neighbor; then the slab
+              within 1e-4 of scale by nearest neighbor (`nearest_max`: an
+              exact search of the neighboring cells); then the slab
               fast path on the same ranks,
               run(..., sort_every=4, slot_resident=True, shards=4) in
               dispatches of 20: frames after each, one spec, every rank's
@@ -180,17 +181,19 @@ Phases, each printed as one JSON line:
               sequence
  35. decomp_fast  the slab fast path run(scene, n, method="pallas",
               sort_every=4, slot_resident=True, shards=1) in the one-rank
-              NCCL world at dam3d_100k (200 steps) and splash3d_1m (20),
+              NCCL world at dam3d_100k (100 steps) and splash3d_1m (20),
               one dispatch: health, one spec, the policy's counters and
               host fetches per block, K1/K2 launched n + 1 + 4 per healed
-              block, against the single-device resident4auto run slot by
-              slot (active count exactly, x within 1e-4 of scale); host
+              block, the blocks by first pass, bitwise the same run on
+              fresh block storage, against the single-device resident4auto
+              run slot by slot (active count exactly, x within 1e-4 of
+              scale); host
               ms/step in turns with resident4auto and the per-step
               run(shards=1); device ms and operations a step of a 12-step
               dispatch of each (profile)
  36. decomp_classic  the fast path's classic form (slot_resident=False)
               through make_audited_spatial_advance at dam3d_100k, one
-              200-step dispatch: health, K1/K2 launched once a step (twice
+              100-step dispatch: health, K1/K2 launched once a step (twice
               after an exact re-run), against the single-device
               sort_every=4 reuse run slot by slot
  37. kernels  (with phase 33) K1 and K2 on rank 1's skinned slab-local
@@ -206,7 +209,7 @@ Phases, each printed as one JSON line:
               block, and the first dispatch is bitwise the per-step slab
               advance from its input
  39. decomp_pencil  pencils, run(scene, n, method="pallas", shards=(1, 1))
-              in the one-rank NCCL world at dam3d_100k (200 steps) and
+              in the one-rank NCCL world at dam3d_100k (100 steps) and
               splash3d_1m (20), one dispatch: health, one spec, K1/K2
               launched n + 1 times, against the single-device per-step run
               slot by slot (the active count exactly, x within 1e-4 of
@@ -265,8 +268,13 @@ Phases, each printed as one JSON line:
               arrays bitwise, the violation counts and the rebuild
               predicate's (the block's last slot_post) equal; their times
               (CUDA events over host launches, graph replay), the plain
-              versions', the block's first slot_pre, and the byte bound
-              over the occupied groups
+              versions', and the byte bound over the occupied groups; then
+              a block's first slot_pre over the occupied groups of that
+              storage (filled for the addressing) from the carry, bitwise
+              its plain version and writing the x and v of the first pass
+              over every slot, which copies the top's x into x0 bitwise:
+              the times and bounds of both (every slot's bytes for the
+              full pass)
  46. settled  `python -m sph_tpu_torch.make_settled_state CONFIG`, a
               subprocess for each of its two configs (exit 0), at the
               reference's criteria: splash3d_1m at step 3000 with all
@@ -279,12 +287,15 @@ Phases, each printed as one JSON line:
               final mode, rho/rho0, max|v|, peak memory; finite, every
               particle kept, rho/rho0 in [0.90, 1.10], max|v| < c0, the
               switch by step 1000, heals in fewer than half the blocks,
-              repairs; K1/K2 once a step, the prime and 4 a healed block
+              repairs, and exactly the recorded outcome (healed 50,
+              repaired 786, the switch in the dispatch from step 300);
+              K1/K2 once a step, the prime and 4 a healed block; the
+              blocks by first pass
  48. soak_spatial  `soak_spatial.soak(2000, shards=1)` in a one-rank NCCL
               group of its own: n_act == n at every probe, finite, the
               elastic recoveries counted; the launches as phase 47's
- 49. soak_emitters  `soak_emitters.soak` of vortex2d (5000 steps: the
-              demotion to per step) and of emitters3d (EMITTERS_SOAK_STEPS
+ 49. soak_emitters  `soak_emitters.soak` of vortex2d (VORTEX_STEPS of
+              the reference's 5000, `reduced`: the demotion to per step) and of emitters3d (EMITTERS_SOAK_STEPS
               of the reference's 260,000, `reduced`; its final state saved
               to out/, gitignored): finite, every emitted particle kept,
               modes, healed, repaired; one layout's kernels a step
@@ -296,6 +307,19 @@ Phases, each printed as one JSON line:
   Every path counts the passes' launches too: none off the resident
   paths; on them slot_post once a step and slot_pre once a step under
   leapfrog (once a block under Euler), unless a dispatch ran demoted.
+  The resident paths also count their blocks by first slot_pre (over
+  every slot, or over the occupied groups of a storage filled for the
+  block's addressing: `slot_pass.BLOCKS`); resident4auto at dam3d_100k
+  and splash3d_1m (the flagship) must have run occupied-only ones.
+ 51. slot_storage  (run after phase 17) the resident paths of
+              STORAGE_PATHS (the flagship splash3d_1m resident4auto, its
+              cap-8 policy, dam3d_100k in one and in 12-step dispatches,
+              pinned packed rows at emitters3d@settled) through `run`
+              twice: with the block storage that outlives the block and
+              with fresh storage every block (`slot_pass.FRESH_STORAGE`,
+              every first pass over every slot): final states bitwise,
+              counters equal, occupied-only first passes in the first
+              run and none in the second
   Phase 18 also profiles pinned packed rows at emitters3d@settled.
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
@@ -314,6 +338,7 @@ import contextlib
 import dataclasses
 import functools
 import io
+import itertools
 import json
 import re
 import shutil
@@ -949,6 +974,16 @@ def read_counts(name: str) -> dict:
     return counts
 
 
+def first_passes() -> dict:
+    """The resident blocks since the counts were last set to 0, by their
+    first slot_pre (over every slot: `full`; over the occupied groups of a
+    storage filled for the addressing: `occupied`) and by where their top
+    came from (`slot_pass.BLOCKS`)."""
+    from sph_tpu_torch import slot_pass
+
+    return dict(slot_pass.BLOCKS)
+
+
 def health(state, scene) -> dict:
     """What the paths' health checks read off the state a run ends on."""
     act = state.active
@@ -1015,6 +1050,7 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
     wall = time.perf_counter() - t0
     launches = read_counts(name)
     fetches = dict(step_mod.FETCHES)
+    passes = first_passes()
     peak = torch.cuda.max_memory_allocated()
     audit(state)
     sys.stderr.write(notes.getvalue())
@@ -1045,6 +1081,7 @@ def phase_path(name: str, scene, state, n_steps: int, dev, run_kw=None,
         out["host_fetches"] = {
             **fetches,
             "per_block": fetches["fetches"] / max(fetches["blocks"], 1)}
+        out["first_passes"] = passes
     emit(out)
     check_health(name, hl, n_start, seen["overflow"], rho_band, vmax_limit)
     check_slot_pass(name, launches, n_steps, scene,
@@ -1319,15 +1356,106 @@ def phase_resident_agreement(dev, n_steps: int = 20):
     check(same, "two resident4auto runs give bitwise-equal x")
 
 
+def same_state(a, b) -> bool:
+    """Two States bit for bit: the floats as int32 (+0 and -0 apart), the
+    rest exactly."""
+    return all(bitwise(getattr(a, f), getattr(b, f))
+               for f in ("x", "v", "acc", "rho", "p")) and all(
+        torch.equal(getattr(a, f), getattr(b, f))
+        for f in ("kind", "emit_step", "step"))
+
+
+@contextlib.contextmanager
+def fresh_storage():
+    """Every resident block on fresh storage with the full first pass
+    (`slot_pass.FRESH_STORAGE`): the sequence the persistent storage is
+    held to."""
+    from sph_tpu_torch import slot_pass
+
+    slot_pass.FRESH_STORAGE = True
+    try:
+        yield
+    finally:
+        slot_pass.FRESH_STORAGE = False
+
+
+# the resident paths whose persistent block storage phase_slot_storage holds
+# to fresh storage: (preset, steps, run options)
+STORAGE_PATHS = (
+    ("splash3d_1m", 20, dict(RESIDENT)),
+    ("splash3d_1m", 20, dict(RESIDENT, adaptive_cap=True)),
+    ("dam3d_100k", 100, dict(RESIDENT)),
+    ("dam3d_100k", 100, dict(RESIDENT, steps_per_dispatch=12)),
+    ("emitters3d@settled", 40, dict(RESIDENT, packed_rows=True)),
+)
+
+
+def phase_slot_storage(dev, settled, scene_e) -> dict:
+    """Each of STORAGE_PATHS through `run` twice, with the block storage
+    that outlives the block and with fresh storage every block: the final
+    states bitwise equal, the policy's counters equal, and the blocks by
+    first pass (occupied-only in the first run wherever a block's storage
+    was filled for its addressing, none in the second); host ms a step of
+    each."""
+    from sph_tpu_torch import init, preset, run
+
+    out = []
+    for name, n, kw in STORAGE_PATHS:
+        if name == "emitters3d@settled":
+            scene, s0 = scene_e, settled
+        else:
+            scene = preset(name)
+            s0 = init(scene, device=dev)
+        runs = []
+        for fresh in (False, True):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if fresh:
+                    stack.enter_context(fresh_storage())
+                stack.enter_context(contextlib.redirect_stderr(
+                    io.StringIO()))
+                made = stack.enter_context(audited_advances())
+                st = run(scene, n, method="pallas", state=s0, device=dev,
+                         **kw)
+            torch.cuda.synchronize()
+            runs.append({
+                "state": st, "passes": first_passes(),
+                "ms_per_step": (time.perf_counter() - t0) / n * 1e3,
+                "counters": [(a.healed, a.repaired, a.rebuilds, a.mode)
+                             for a in made]})
+        a, b = runs
+        where = f"{name} {dict(kw)}"
+        res = {"preset": name, "steps": n, "run": kw,
+               "bitwise": same_state(a["state"], b["state"]),
+               "counters": a["counters"], "first_passes": a["passes"],
+               "first_passes_fresh": b["passes"],
+               "ms_per_step": a["ms_per_step"],
+               "ms_per_step_fresh": b["ms_per_step"]}
+        out.append(res)
+        check(res["bitwise"] and a["counters"] == b["counters"],
+              f"the persistent block storage bitwise fresh storage at "
+              f"{where}")
+        check(a["passes"]["occupied"] > 0 and b["passes"]["occupied"] == 0,
+              f"occupied-only first passes on the persistent storage at "
+              f"{where}: {a['passes']}")
+    emit({"phase": "slot_storage", "paths": out,
+          "note": "host ms/step, prime and notes included, one run each"})
+    return out
+
+
 def phase_profile_resident(name: str, scene, state, n_steps: int, dev,
                            **policy):
     """One `n_steps`-step resident4auto dispatch (with `policy`, e.g.
     adaptive_cap=True, on top) under torch.profiler, after one warm
     dispatch: device time per step by kernel, operations per step, busy
-    share, and the host fetches per block."""
+    share, the host fetches per block, and the blocks by first slot_pre
+    (None for a package without the counts, as profile_turns.py may
+    measure)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sph_tpu_torch import make_audited_advance, prime
+    from sph_tpu_torch import make_audited_advance, prime, slot_pass
     from sph_tpu_torch import step as step_mod
 
     adv = make_audited_advance(scene, "pallas", n_steps, device=dev,
@@ -1338,6 +1466,7 @@ def phase_profile_resident(name: str, scene, state, n_steps: int, dev,
     torch.cuda.synchronize()
     before = (adv.healed, adv.rebuilds, adv.repaired)
     step_mod.reset_fetches()
+    slot_pass.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1358,6 +1487,7 @@ def phase_profile_resident(name: str, scene, state, n_steps: int, dev,
           "healed": adv.healed - before[0],
           "rebuilds": adv.rebuilds - before[1],
           "repaired": adv.repaired - before[2], "host_fetches": fetches,
+          "first_passes": dict(getattr(slot_pass, "BLOCKS", {})) or None,
           "wall_ms_per_step_profiled": wall / n_steps * 1e3,
           "device_ms_per_step": busy,
           "device_busy_share": busy / (wall / n_steps * 1e3),
@@ -1563,6 +1693,7 @@ def phase_packed_scatter(dev, n_steps: int, spd: int = 100):
     wall = time.perf_counter() - t0
     launches = read_counts(name)
     fetches = dict(step_mod.FETCHES)
+    passes = first_passes()
     peak = torch.cuda.max_memory_allocated()
     over = max(over, overflow(state))
     hl = health(state, scene)
@@ -1725,10 +1856,15 @@ CAP8 = dict(RESIDENT, adaptive_cap=True)
 ROOT = Path(__file__).resolve().parent
 
 
+FEAT_BYTES = 8 * 4      # the eight fp32 feature channels of a slot
+
+
 def slot_pass_bound(name: str, addr, movb, d: int, params) -> tuple:
-    """(bound_ms, bound_by) of one in-place slot_pre (leapfrog kick and
-    drift) or slot_post on these arrays: the bytes of the slots of the
-    occupied groups (each input read once, each output written once) over
+    """(bound_ms, bound_by) of one slot_pre (leapfrog kick and drift, in
+    place or a block's first over the occupied groups: the same bytes),
+    its full first pass over every slot with the copy into x0
+    (`slot_pre_full`), or slot_post on these arrays: the bytes of the
+    slots it visits (each input read once, each output written once) over
     the HBM rate, and the operations of the movable slots over the fp32
     rate."""
     n = int(addr.n_occ[0])
@@ -1737,6 +1873,10 @@ def slot_pass_bound(name: str, addr, movb, d: int, params) -> tuple:
     vec = d * 4
     if name == "slot_pre":      # read x, v, acc, mov; write x, v
         moved = slots * (5 * vec + 1)
+        ops = n_mov * 6 * d
+    elif name == "slot_pre_full":   # every slot: read x, v, acc, mov;
+        # write the eight channels, acc and x0
+        moved = movb.numel() * (3 * vec + 1 + FEAT_BYTES + 2 * vec)
         ops = n_mov * 6 * d
     else:                       # read x, v, rho, f, x0, mov; write v, acc
         euler_or_clamp = (params.integrator != "leapfrog"
@@ -1810,7 +1950,12 @@ def phase_slot_pass(name: str, dev, grid=None, lattice: str = "sort_every=4",
                               RESIDENT["sort_every"])
     blocks = [slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, False, dev)
               for _ in range(2)]
-    ways = ((slot_pass.slot_pre, slot_pass.slot_post),
+    # the kernels walk the addressing's tile list, made once as the
+    # resident block makes it
+    tiles = slot_pass.occupied_tiles(addr.gcounts, addr.n_occ)
+    pre_k = functools.partial(slot_pass.slot_pre, tiles=tiles)
+    post_k = functools.partial(slot_pass.slot_post, tiles=tiles)
+    ways = ((pre_k, post_k),
             (slot_pass.slot_pre_plain, slot_pass.slot_post_plain))
     counts, err = [], {"slot_pre": 0.0, "slot_post": 0.0}
     where = f"{name}, lattice {lattice}"
@@ -1843,21 +1988,39 @@ def phase_slot_pass(name: str, dev, grid=None, lattice: str = "sort_every=4",
           f"slot_post's rebuild predicate equals plain at {where}")
     check(counts[-1][0] > 0 and risky[0] > 0,
           f"the audit and the rebuild predicate fired at {where}")
+    # a block's first slot_pre: over the occupied groups of a storage
+    # filled for this addressing (the blocks above), and over every slot
+    # of a fresh one, with the copy of the top's x into x0
+    for blk, pre in zip(blocks, (pre_k, slot_pass.slot_pre_plain)):
+        pre(blk, xs, vs, acc, movb, addr.gcounts, addr.n_occ, dt, True,
+            True, True, full=False)
+    first = slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, False, dev)
+    x0 = torch.empty_like(acc)
+    slot_pass.slot_pre(first, xs, vs, acc, movb, addr.gcounts, addr.n_occ,
+                       dt, True, True, True, x0=x0)
+    torch.cuda.synchronize()
+    check(bitwise(a.feat, b.feat) and bitwise(a.acc, b.acc)
+          and int(a.count) == int(b.count) == 0,
+          f"the first slot_pre over the occupied groups bitwise plain at "
+          f"{where}")
+    check(bitwise(a.xs, first.xs) and bitwise(a.vs, first.vs)
+          and bitwise(x0, xs),
+          f"the first slot_pre over the occupied groups of a filled "
+          f"storage writes the full pass's x and v at {where}")
 
     a, b = blocks
     rp = ps._call_density(a.feat, addr, sg, params, c["jb"])
     f = ps._call_force(a.feat, rp, addr, sg, params, c["jb"])
     calls = {
         "slot_pre": (
-            lambda: slot_pass.slot_pre(a, a.xs, a.vs, a.acc, movb,
-                                       addr.gcounts, addr.n_occ, dt, True,
-                                       True, False),
+            lambda: pre_k(a, a.xs, a.vs, a.acc, movb, addr.gcounts,
+                          addr.n_occ, dt, True, True, False),
             lambda: slot_pass.slot_pre_plain(b, b.xs, b.vs, b.acc, movb,
                                              addr.gcounts, addr.n_occ, dt,
                                              True, True, False)),
         "slot_post": (   # a block's last, with the rebuild predicate
-            lambda: slot_pass.slot_post(a, rp, f, c["x0s"], movb, addr,
-                                        plan, step0, 0, True),
+            lambda: post_k(a, rp, f, c["x0s"], movb, addr, plan, step0, 0,
+                           True),
             lambda: slot_pass.slot_post_plain(b, rp, f, c["x0s"], movb,
                                               addr, plan, step0, 0, True)),
     }
@@ -1868,10 +2031,40 @@ def phase_slot_pass(name: str, dev, grid=None, lattice: str = "sort_every=4",
                       "ms": cuda_ms(kern), "graph_ms": graph_ms(kern),
                       "plain_ms": cuda_ms(plain), "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None}
-    first = slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, False, dev)
     res["slot_pre"]["first_ms"] = cuda_ms(lambda: slot_pass.slot_pre(
         first, xs, vs, acc, movb, addr.gcounts, addr.n_occ, dt, True, True,
         True))
+    b_ms, b_by = slot_pass_bound("slot_pre_full", addr, movb, d, params)
+    full_x0 = (lambda: slot_pass.slot_pre(
+        first, xs, vs, acc, movb, addr.gcounts, addr.n_occ, dt, True, True,
+        True, x0=x0))
+    res["slot_pre"]["first_full"] = {
+        "ms": cuda_ms(full_x0), "graph_ms": graph_ms(full_x0),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "note": "every slot, with the copy of the top's x into x0: a "
+                "block's first after a build"}
+    b_ms, b_by = slot_pass_bound("slot_pre", addr, movb, d, params)
+    occ = (lambda: pre_k(
+        a, xs, vs, acc, movb, addr.gcounts, addr.n_occ, dt, True, True,
+        True, full=False))
+    res["slot_pre"]["first_occupied"] = {
+        "ms": cuda_ms(occ), "graph_ms": graph_ms(occ),
+        "plain_ms": cuda_ms(lambda: slot_pass.slot_pre_plain(
+            b, xs, vs, acc, movb, addr.gcounts, addr.n_occ, dt, True, True,
+            True, full=False)),
+        "bound_ms": b_ms, "bound_by": b_by, "bitwise_plain": True,
+        "note": "the occupied groups of a storage filled for the "
+                "addressing: a block's first after a repair or a block"}
+    # the launch's own cost: the same in-place launch with no tile to walk
+    # (no row occupied).  A launch of one block a (row, group), each
+    # exiting at its own occupancy check, cost 0.038 ms so at splash3d_1m
+    # on an H100 (PERF.md)
+    none = slot_pass.occupied_tiles(addr.gcounts,
+                                    torch.zeros_like(addr.n_occ))
+    res["slot_pre"]["exit_only_graph_ms"] = graph_ms(
+        lambda: slot_pass.slot_pre(a, a.xs, a.vs, a.acc, movb, addr.gcounts,
+                                   addr.n_occ, dt, True, True, False,
+                                   tiles=none))
     n = int(addr.n_occ[0])
     emit({"phase": "slot_pass", "preset": name, "lattice": lattice,
           "slot_arrays": [sg.c_rows, sg.lanes], "n_occ": n,
@@ -2100,16 +2293,61 @@ def run_cli(argv: list, env=None, module: str = "cli",
     """(returncode, stdout, stderr, seconds) of `python -m
     sph_tpu_torch.<module> argv` from the checkout's root."""
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", f"sph_tpu_torch.{module}",
-                          *argv], cwd=ROOT, capture_output=True, text=True,
-                         timeout=timeout, env=env)
+    res = subprocess.run(cli_cmd(argv, module), cwd=ROOT, capture_output=True,
+                         text=True, timeout=timeout, env=env)
     return (res.returncode, res.stdout, res.stderr,
             time.perf_counter() - t0)
 
 
+def cli_cmd(argv: list, module: str = "cli") -> list:
+    return [sys.executable, "-m", f"sph_tpu_torch.{module}", *argv]
+
+
+def side_by_side(cmds: list, timeout: float = 600.0) -> list:
+    """Each (command, env) of `cmds` as its own process from the checkout's
+    root, all started together: the (returncode, stdout, stderr, seconds)
+    of each, its seconds its own wall time while the others share the card
+    and the host.  Output goes to files, so that no pipe fills; every
+    process still running at the timeout, or when one fails to start, is
+    killed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        try:
+            for k, (cmd, env) in enumerate(cmds):
+                out = open(Path(tmp) / f"{k}.out", "w+")
+                err = open(Path(tmp) / f"{k}.err", "w+")
+                procs.append([subprocess.Popen(
+                    cmd, cwd=ROOT, stdout=out, stderr=err, text=True,
+                    env=env), out, err, time.perf_counter(), None])
+            deadline = time.perf_counter() + timeout
+            while any(pr[4] is None for pr in procs):
+                check(time.perf_counter() < deadline,
+                      f"the side-by-side commands end within {timeout} s")
+                for pr in procs:
+                    if pr[4] is None and pr[0].poll() is not None:
+                        pr[4] = time.perf_counter() - pr[3]
+                time.sleep(0.05)
+        finally:
+            for pr in procs:
+                if pr[0].poll() is None:
+                    pr[0].kill()
+                    pr[0].wait()
+        res = []
+        for proc, out, err, _, secs in procs:
+            out.seek(0)
+            err.seek(0)
+            res.append((proc.returncode, out.read(), err.read(), secs))
+            out.close()
+            err.close()
+        return res
+
+
 def phase_cli() -> None:
     """The user's entry point, `python -m sph_tpu_torch.cli`, in
-    subprocesses on the card (the default --device cuda): run at
+    subprocesses on the card (the default --device cuda), side by side:
+    run at
     dam3d_100k (--method auto, frames rendered), at splash3d_1m with
     --adaptive-cap, from the settled emitters3d checkpoint, --debug at
     dam2d_10k; record at dam2d_10k (an APNG through the native encoder);
@@ -2123,12 +2361,37 @@ def phase_cli() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
 
-        def go(argv, want_rc=0, env=None):
-            rc, out, err, secs = run_cli(argv, env)
+        dam, splash, em = (tmp / n for n in ("dam3d_100k", "splash3d_1m",
+                                             "emitters3d"))
+        dbg, movie = tmp / "dam2d_10k", tmp / "movie.apng"
+        nocard = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        cmds = [
+            (["run", "dam3d_100k", "--frames", "3", "--steps-per-frame",
+              "40", "--render", "--out", str(dam), "--quiet"], 0, None),
+            (["run", "splash3d_1m", "--adaptive-cap", "--frames", "2",
+              "--steps-per-frame", "20", "--out", str(splash), "--quiet"],
+             0, None),
+            (["run", "emitters3d", "--resume", str(SETTLED), "--frames", "2",
+              "--steps-per-frame", "100", "--out", str(em), "--quiet"], 0,
+             None),
+            (["run", "dam2d_10k", "--debug", "--frames", "1", "--out",
+              str(dbg), "--quiet"], 0, None),
+            (["record", "dam2d_10k", "--frames", "10", "--out", str(movie),
+              "--quiet"], 0, None),
+            (["run", "dam3d_100k", "--method", "pallas", "--adaptive-cap"],
+             2, None),
+            (["run", "dam2d_10k", "--frames", "1", "--out",
+              str(tmp / "nocard")], 1, nocard),
+        ]
+        errs = []
+        for (argv, want_rc, _), (rc, out, err, secs) in zip(
+                cmds, side_by_side([(cli_cmd(a), env)
+                                    for a, _, env in cmds])):
             emit({"phase": "cli", "argv": argv, "rc": rc, "seconds": secs,
+                  "seconds_note": "the seven commands side by side",
                   "stdout_tail": out[-400:], "stderr_tail": err[-800:]})
             check(rc == want_rc, f"cli {' '.join(argv)} exits {want_rc}")
-            return err
+            errs.append(err)
 
         def metrics(out: Path, frames: int, step: int, modes) -> list:
             recs = [json.loads(ln) for ln in
@@ -2149,58 +2412,34 @@ def phase_cli() -> None:
             emit({"phase": "cli", "metrics": out.name, "last": recs[-1]})
             return recs
 
-        dam = tmp / "dam3d_100k"
-        go(["run", "dam3d_100k", "--frames", "3", "--steps-per-frame", "40",
-            "--render", "--out", str(dam), "--quiet"])
         metrics(dam, 3, 120, ("resident",))
         sizes = [decode_png((dam / f"frame_{k:05d}.png").read_bytes())
                  for k in range(3)]
         check(sizes == [(400, 300)] * 3, "three 400x300 frames that decode")
-        splash = tmp / "splash3d_1m"
-        go(["run", "splash3d_1m", "--adaptive-cap", "--frames", "2",
-            "--steps-per-frame", "20", "--out", str(splash), "--quiet"])
         metrics(splash, 2, 40, ("cap8", "cap16"))
-        em = tmp / "emitters3d"
-        go(["run", "emitters3d", "--resume", str(SETTLED), "--frames", "2",
-            "--steps-per-frame", "100", "--out", str(em), "--quiet"])
         metrics(em, 2, 260200, ("packed", "slot"))
-        dbg = tmp / "dam2d_10k"
-        go(["run", "dam2d_10k", "--debug", "--frames", "1", "--out",
-            str(dbg), "--quiet"])
         metrics(dbg, 1, 100, None)
-        movie = tmp / "movie.apng"
-        go(["record", "dam2d_10k", "--frames", "10", "--out", str(movie),
-            "--quiet"])
         chunks = png_chunks(movie.read_bytes())
         actl = [p for t, p in chunks if t == b"acTL"]
         check(len(actl) == 1 and struct.unpack(">I", actl[0][:4])[0] == 10
               and sum(t == b"fcTL" for t, _ in chunks) == 10
               and not list(tmp.glob("movie_*.png")),
               "record wrote a 10-frame APNG through the native encoder")
-        err = go(["run", "dam3d_100k", "--method", "pallas",
-                  "--adaptive-cap"], want_rc=2)
-        check(len(err.strip().splitlines()) == 1 and "Traceback" not in err,
+        check(len(errs[5].strip().splitlines()) == 1
+              and "Traceback" not in errs[5],
               "a contradictory flag set is one line of usage error")
-        err = go(["run", "dam2d_10k", "--frames", "1", "--out",
-                  str(tmp / "nocard")], want_rc=1,
-                 env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
-        check(len(err.strip().splitlines()) == 1 and "no CUDA device" in err
+        check(len(errs[6].strip().splitlines()) == 1
+              and "no CUDA device" in errs[6]
               and not (tmp / "nocard").exists(),
               "with no card the command stops with one line")
 
 
-def torchrun_cli(nproc: int, argv: list) -> tuple:
-    """(returncode, stdout, stderr, seconds) of `python -m
-    torch.distributed.run --standalone --nproc-per-node nproc -m
-    sph_tpu_torch.cli argv` from the checkout's root (its rendezvous on a
-    free port of localhost)."""
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", str(nproc), "-m", "sph_tpu_torch.cli", *argv],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    return (res.returncode, res.stdout, res.stderr,
-            time.perf_counter() - t0)
+def torchrun_cmd(nproc: int, argv: list) -> list:
+    """`python -m torch.distributed.run --standalone --nproc-per-node nproc
+    -m sph_tpu_torch.cli argv` (its rendezvous on a free port of
+    localhost)."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(nproc), "-m", "sph_tpu_torch.cli", *argv]
 
 
 # the keys the decomposed loop writes a frame, as the reference's
@@ -2212,8 +2451,9 @@ DECOMP_KEYS = {"frame", "step", "shards", "wall_s", "advance_mode",
 
 
 def phase_cli_shards() -> None:
-    """Phase 42, the command line's --shards under torchrun on the card:
-    run dam3d_100k --shards 1 on one process (--method auto: the slab fast
+    """Phase 42, the command line's --shards under torchrun on the card,
+    the five commands side by side: run dam3d_100k --shards 1 on one
+    process (--method auto: the slab fast
     path over NCCL, frames rendered); run dam3d_100k --shards 2x2 on four
     processes on cuda:0 (gloo: pencils, the pencil note, mesh "2x2", one
     metrics.jsonl from rank 0); record dam2d_10k --shards 2 on two
@@ -2226,15 +2466,37 @@ def phase_cli_shards() -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-
-        def go(nproc, argv):
-            rc, out, err, secs = torchrun_cli(nproc, argv)
+        slab, pencil = tmp / "slab", tmp / "pencil"
+        movie, one = tmp / "movie.apng", tmp / "one"
+        # (processes, argv): torchrun for more than none, else a plain
+        # command; the five side by side
+        runs = [
+            (1, ["run", "dam3d_100k", "--shards", "1", "--frames", "3",
+                 "--steps-per-frame", "40", "--render", "--out", str(slab),
+                 "--quiet"]),
+            (4, ["run", "dam3d_100k", "--shards", "2x2", "--device",
+                 "cuda:0", "--frames", "2", "--steps-per-frame", "20",
+                 "--out", str(pencil), "--quiet"]),
+            (2, ["record", "dam2d_10k", "--shards", "2", "--device",
+                 "cuda:0", "--frames", "4", "--steps-per-frame", "20",
+                 "--out", str(movie), "--quiet"]),
+            (0, ["run", "dam2d_10k", "--shards", "1x1", "--frames", "1",
+                 "--steps-per-frame", "10", "--out", str(one), "--quiet"]),
+            (0, ["run", "dam2d_10k", "--shards", "2x2", "--out",
+                 str(tmp / "none")]),
+        ]
+        done = side_by_side([(torchrun_cmd(n, a) if n else cli_cmd(a), None)
+                             for n, a in runs])
+        outs = []
+        for (nproc, argv), (rc, out, err, secs) in zip(runs, done):
             emit({"phase": "cli_shards", "nproc": nproc, "argv": argv,
-                  "rc": rc, "seconds": secs, "stdout_tail": out[-400:],
-                  "stderr_tail": err[-1200:]})
+                  "rc": rc, "seconds": secs,
+                  "seconds_note": "the five commands side by side",
+                  "stdout_tail": out[-400:], "stderr_tail": err[-1200:]})
+            outs.append((rc, out, err))
+        for (nproc, argv), (rc, _, _) in zip(runs[:3], outs):
             check(rc == 0, f"torchrun --nproc-per-node {nproc} "
                            f"{' '.join(argv)}: every process exits 0")
-            return out, err
 
         def metrics(out: Path, frames: int, step: int, keys: set) -> list:
             recs = [json.loads(ln) for ln in
@@ -2250,21 +2512,14 @@ def phase_cli_shards() -> None:
                   "last": recs[-1]})
             return recs
 
-        slab = tmp / "slab"
-        _, err = go(1, ["run", "dam3d_100k", "--shards", "1", "--frames",
-                        "3", "--steps-per-frame", "40", "--render", "--out",
-                        str(slab), "--quiet"])
-        check("nccl backend" in err, "--shards 1 on the card runs NCCL")
+        check("nccl backend" in outs[0][2], "--shards 1 on the card runs NCCL")
         recs = metrics(slab, 3, 120, DECOMP_KEYS)
         check(all(r["shards"] == 1 and r["advance_mode"] == "resident"
                   for r in recs), "the slab fast path on one rank")
         sizes = [decode_png((slab / f"frame_{k:05d}.png").read_bytes())
                  for k in range(3)]
         check(sizes == [(400, 300)] * 3, "three 400x300 frames that decode")
-        pencil = tmp / "pencil"
-        _, err = go(4, ["run", "dam3d_100k", "--shards", "2x2", "--device",
-                        "cuda:0", "--frames", "2", "--steps-per-frame",
-                        "20", "--out", str(pencil), "--quiet"])
+        err = outs[1][2]
         check(err.count("note: pencil decomposition steps per-step") == 1
               and err.count("gloo backend") == 1,
               "the pencil note and the backend line once, from rank 0")
@@ -2274,32 +2529,18 @@ def phase_cli_shards() -> None:
               "mesh 2x2 on four ranks")
         check(sorted(p.name for p in pencil.iterdir()) == ["metrics.jsonl"],
               "rank 0 alone writes, one metrics.jsonl")
-        movie = tmp / "movie.apng"
-        out, _ = go(2, ["record", "dam2d_10k", "--shards", "2", "--device",
-                        "cuda:0", "--frames", "4", "--steps-per-frame",
-                        "20", "--out", str(movie), "--quiet"])
         chunks = png_chunks(movie.read_bytes())
         actl = [p for t, p in chunks if t == b"acTL"]
         check(len(actl) == 1 and struct.unpack(">I", actl[0][:4])[0] == 4
               and sum(t == b"fcTL" for t, _ in chunks) == 4
-              and out.count("wrote") == 1,
+              and outs[2][1].count("wrote") == 1,
               "record --shards 2 wrote one 4-frame APNG, from rank 0")
         # --shards 1x1 as a plain command: a one-rank group of its own
-        one = tmp / "one"
-        rc, _, err, secs = run_cli(["run", "dam2d_10k", "--shards", "1x1",
-                                    "--frames", "1", "--steps-per-frame",
-                                    "10", "--out", str(one), "--quiet"])
-        emit({"phase": "cli_shards", "argv": ["run", "dam2d_10k",
-                                              "--shards", "1x1"],
-              "rc": rc, "seconds": secs, "stderr_tail": err[-800:]})
+        rc, _, err = outs[3]
         check(rc == 0 and "nccl backend" in err,
               "--shards 1x1 without torchrun runs in a one-rank NCCL group")
         metrics(one, 1, 10, {"frame", "step", "shards", "mesh", "wall_s"})
-        rc, _, err, secs = run_cli(["run", "dam2d_10k", "--shards", "2x2",
-                                    "--out", str(tmp / "none")])
-        emit({"phase": "cli_shards", "argv": ["run", "dam2d_10k",
-                                              "--shards", "2x2"],
-              "rc": rc, "seconds": secs, "stderr_tail": err[-400:]})
+        rc, _, err = outs[4]
         check(rc == 2 and len(err.strip().splitlines()) == 1
               and "torchrun --nproc-per-node 4" in err
               and not (tmp / "none").exists(),
@@ -2307,26 +2548,29 @@ def phase_cli_shards() -> None:
 
 
 def phase_cli_frames() -> None:
-    """Phase 43, the reference CLI's frame split on the card: run
-    dam2d_10k --steps-per-frame 250 (--method auto: 3 dispatches of 84
+    """Phase 43, the reference CLI's frame split on the card, side by
+    side: run dam2d_10k --steps-per-frame 250 (--method auto: 3 dispatches of 84
     steps) and --method pallas --steps-per-frame 101 (2 of 51), two
     frames each; metrics.jsonl's step must read 252, 504 and 102, 204."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        for flags, want in ((["--steps-per-frame", "250"], [252, 504]),
-                            (["--method", "pallas", "--steps-per-frame",
-                              "101"], [102, 204])):
-            out = Path(tmp) / "-".join(flags)
-            argv = ["run", "dam2d_10k", "--frames", "2", *flags, "--out",
-                    str(out), "--quiet"]
-            rc, _, err, secs = run_cli(argv)
+        runs = [(["--steps-per-frame", "250"], [252, 504]),
+                (["--method", "pallas", "--steps-per-frame", "101"],
+                 [102, 204])]
+        argvs = [["run", "dam2d_10k", "--frames", "2", *flags, "--out",
+                  str(Path(tmp) / "-".join(flags)), "--quiet"]
+                 for flags, _ in runs]
+        done = side_by_side([(cli_cmd(a), None) for a in argvs])
+        for (flags, want), argv, (rc, _, err, secs) in zip(runs, argvs,
+                                                           done):
+            out = Path(argv[-2])
             steps = ([json.loads(ln)["step"] for ln in
                       (out / "metrics.jsonl").read_text().splitlines()]
                      if rc == 0 else None)
             emit({"phase": "cli_frames", "argv": argv, "rc": rc,
-                  "seconds": secs, "steps": steps,
-                  "stderr_tail": err[-800:]})
+                  "seconds": secs, "seconds_note": "the two side by side",
+                  "steps": steps, "stderr_tail": err[-800:]})
             check(rc == 0 and steps == want,
                   f"run {' '.join(flags)}: steps {want} as the reference")
 
@@ -2519,8 +2763,15 @@ def phase_bench(dev, smi: str) -> dict:
 # soak_emitters.py, measure_spill.py, bench_sweep.py defaults), but for
 # emitters3d's soak: 260,000 steps do not fit the smoke's time, and its
 # first 78,500 are the settled maker's emitters3d fill (the same advance
-# from the same init), so the smoke runs its start
-SOAK_1M_STEPS, SOAK_SPATIAL_STEPS, VORTEX_STEPS = 5000, 2000, 5000
+# from the same init), so the smoke runs its start; and for vortex2d's:
+# its demotion comes after the dispatch from step 100, and the 4000 demoted
+# per-step steps after the smoke's 1000 add nothing the smoke checks
+SOAK_1M_STEPS, SOAK_SPATIAL_STEPS = 5000, 2000
+VORTEX_STEPS, VORTEX_FULL_STEPS = 1000, 5000
+# soak_1m's recorded outcome (healed, repaired, the first step of the
+# dispatch that switched to the default cap), equal in every run on one card
+# (PERF.md section 5)
+SOAK_1M_COUNTERS = (50, 786, 300)
 EMITTERS_SOAK_STEPS, EMITTERS_FULL_STEPS = 10_000, 260_000
 SPILL_ARGS, SWEEP_ARGS = ("dam3d_100k", 3000, 8), ("dam3d_100k", 50)
 SOAK_OUT = ROOT / "out" / "soak_emitters3d.npz"     # gitignored
@@ -2547,7 +2798,7 @@ def in_process(fn):
 
 def phase_settled(dev, smi: str) -> dict:
     """`python -m sph_tpu_torch.make_settled_state CONFIG` for each config
-    of its table, a subprocess each (exit 0), at the reference's criteria;
+    of its table, a subprocess each, side by side (exit 0), at the reference's criteria;
     then each checkpoint loaded and checked: splash3d_1m at step 3000 with
     every one of its 1,080,000 particles, finite, mean rho/rho0 in [0.90,
     1.10], max|v| < c0; emitters3d with at least 20,000 active at a step
@@ -2558,9 +2809,10 @@ def phase_settled(dev, smi: str) -> dict:
     from sph_tpu_torch.diagnostics import active_max_abs_v
 
     out = {}
-    for config, (path, crit) in mss.SETTLED.items():
-        rc, so, se, secs = run_cli([config], module="make_settled_state",
-                                   timeout=900)
+    configs = list(mss.SETTLED.items())
+    done = side_by_side([(cli_cmd([config], "make_settled_state"), None)
+                         for config, _ in configs], timeout=900)
+    for (config, (path, crit)), (rc, so, se, secs) in zip(configs, done):
         lines = so.strip().splitlines()
         check(rc == 0, f"make_settled_state {config} exits 0: {se[-400:]}")
         prog = [re.search(r"step\s+(\d+)\s.*wall\s+([\d.]+)s", ln)
@@ -2572,7 +2824,9 @@ def phase_settled(dev, smi: str) -> dict:
         res = out[config] = {
             "phase": "settled", "config": config, "criteria": crit,
             "path": str(Path(path).relative_to(ROOT)), "rc": rc,
-            "process_seconds": secs, "step": step, **hl,
+            "process_seconds": secs,
+            "process_seconds_note": "the two makers side by side",
+            "step": step, **hl,
             "max_abs_v": active_max_abs_v(state),
             "maker_ms_per_step": float(prog.group(2))
             / int(prog.group(1)) * 1e3,
@@ -2610,6 +2864,7 @@ def phase_soak_1m(dev, smi: str) -> dict:
     base = torch.cuda.memory_allocated()
     res, lines, notes = in_process(lambda: soak_1m.soak(n, device=dev))
     launches = read_counts("soak_1m")
+    passes = first_passes()
     hl = health(res["state"], scene)
     # the first step of the dispatch that outgrew cap 8 (the policy's note)
     switch = next((s - soak_1m.SPD for s, m in res["modes"] if m != "cap8"),
@@ -2623,6 +2878,7 @@ def phase_soak_1m(dev, smi: str) -> dict:
            "switch_step": switch, "rho_mean_over_rest": hl[
                "rho_mean_over_rest"], "max_speed": hl["max_speed"],
            "bytes_held_before": base, "launches": soak_launches(launches),
+           "first_passes": passes,
            "lines": lines, "notes": len(notes), "nvidia_smi": smi}
     emit(out)
     check(hl["finite"] and res["n_final"] == res["n"] == hl["particles"]
@@ -2634,6 +2890,10 @@ def phase_soak_1m(dev, smi: str) -> dict:
           "soak_1m: the cap-8 policy switches to the default cap early")
     check(0 < res["healed"] < blocks // 2 and res["repaired"] > 0,
           "soak_1m: heals in a minority of blocks, repairs")
+    check((res["healed"], res["repaired"], switch) == SOAK_1M_COUNTERS,
+          f"soak_1m repeats its recorded counters (healed, repaired, "
+          f"the switch's dispatch) {SOAK_1M_COUNTERS}: "
+          f"{(res['healed'], res['repaired'], switch)}")
     check(launches["slot_density"] == launches["slot_force"]
           == n + 1 + 4 * res["healed"] and launches["packed_density"] == 0,
           "soak_1m: K1/K2 once a step, the prime, 4 a healed block")
@@ -2730,6 +2990,10 @@ def phase_soak_emitters(dev, smi: str) -> dict:
             r["reduced"] = {"steps": n, "of": EMITTERS_FULL_STEPS,
                             "why": "the smoke's time limit; the full soak "
                                    "runs outside the smoke"}
+        else:
+            r["reduced"] = {"steps": n, "of": VORTEX_FULL_STEPS,
+                            "why": "the smoke's time limit; the demotion "
+                                   "is at its second dispatch"}
         emit(r)
         check(hl["finite"] and res["n_final"] == want_n == hl["particles"],
               f"soak_emitters {config}: finite, every emitted particle kept")
@@ -2802,7 +3066,7 @@ def phase_spill_sweep(dev, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # steps each decomposed path is driven for
-DECOMP_STEPS = {"dam3d_100k": 200, "splash3d_1m": 20}
+DECOMP_STEPS = {"dam3d_100k": 100, "splash3d_1m": 20}
 RANKS, RANKS_STEPS = 4, 100
 PENCIL_RANKS = (2, 2)     # the pencil grid of the four ranks
 RANKS_FAST_SPD = 20       # the fast path's dispatches on the four ranks
@@ -2857,14 +3121,49 @@ def spec_builds(kind: str = "SpatialSpec"):
         cls.for_state = staticmethod(real)
 
 
+def nearest_max(p, q, cell: float) -> float:
+    """The largest distance from a point of `p` to its nearest point of
+    `q`: exact wherever that distance is below `cell`, since the nearest
+    point then lies in the 3^D cells of edge `cell` around the point's own
+    (q binned into cells, sorted by cell, each neighbor cell's run of
+    points found by binary search); inf where a point has none so near."""
+    dev, d = p.device, p.shape[1]
+    lo = torch.minimum(p.min(0).values, q.min(0).values)
+    kp = torch.floor((p - lo) / cell).long()
+    kq = torch.floor((q - lo) / cell).long()
+    span = torch.maximum(kp.max(0).values, kq.max(0).values) + 3
+
+    def key(k):
+        out = torch.zeros(k.shape[0], dtype=torch.long, device=dev)
+        for ax in range(d):
+            out = out * span[ax] + (k[:, ax] + 1)
+        return out
+
+    qk, order = torch.sort(key(kq))
+    qs = q[order]
+    per_cell = int(torch.unique_consecutive(qk, return_counts=True)[1].max())
+    best = torch.full((p.shape[0],), float("inf"), device=dev)
+    for off in itertools.product((-1, 0, 1), repeat=d):
+        k = key(kp + torch.tensor(off, device=dev))
+        first = torch.searchsorted(qk, k)
+        for j in range(per_cell):
+            idx = torch.clamp(first + j, max=qk.shape[0] - 1)
+            hit = (first + j < qk.shape[0]) & (qk[idx] == k)
+            diff = p - qs[idx]
+            dist = torch.sqrt(torch.sum(diff * diff, dim=1))
+            best = torch.where(hit, torch.minimum(best, dist), best)
+    return float(best.max())
+
+
 def agreement(a, b, n_start: int, same_order: bool) -> dict:
     """A decomposed run `a` against the single-device run `b`: exact
     conservation of the active count, and max |dx| over the position scale
     of b.  `same_order`: a's active slots are b's in the same order (one
     rank: no particle migrates), compared slot by slot; else by nearest
-    neighbor, both ways (the symmetric Hausdorff distance of the two
-    sets, exact differences in chunks), since slot order follows slab
-    ownership and a sort by position is not stable under rounding."""
+    neighbor, both ways (the symmetric Hausdorff distance of the two sets,
+    `nearest_max`: exact below the limit, inf above it), since slot order
+    follows slab ownership and a sort by position is not stable under
+    rounding."""
     xa, xb = a.x[a.active], b.x[b.active]
     n = [int(xa.shape[0]), int(xb.shape[0]), n_start]
     out = {"particles": n, "limit": 1e-4, "matched": "slot" if same_order
@@ -2876,12 +3175,8 @@ def agreement(a, b, n_start: int, same_order: bool) -> dict:
         dx = float((xa - xb).abs().max())
         bit = bool(torch.equal(xa, xb))
     else:
-        dx = 0.0
-        for p, q in ((xa, xb), (xb, xa)):
-            for c in range(0, p.shape[0], 2048):
-                d = torch.cdist(p[c:c + 2048], q,
-                                compute_mode="donot_use_mm_for_euclid_dist")
-                dx = max(dx, float(d.min(dim=1).values.max()))
+        cell = out["limit"] * scale
+        dx = max(nearest_max(xa, xb, cell), nearest_max(xb, xa, cell))
         bit = dx == 0.0
     return {**out, "max_dx_over_scale": dx / scale, "bitwise": bit}
 
@@ -3181,8 +3476,16 @@ def phase_decomp_fast(name: str, dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(f"decomp_fast {name}")
+    passes = first_passes()
     pol = policy_of(made, n_steps // RESIDENT["sort_every"],
                     dict(step_mod.FETCHES))
+    with fresh_storage(), contextlib.redirect_stderr(io.StringIO()):
+        a_fresh = run(scene, n_steps, method="pallas",
+                      steps_per_dispatch=n_steps, shards=1, state=s0,
+                      device=dev, **RESIDENT)
+    check(same_state(a, a_fresh) and passes["occupied"] > 0,
+          f"the slab fast path's persistent block storage bitwise fresh "
+          f"storage, with occupied-only first passes, at {name}: {passes}")
     with contextlib.redirect_stderr(io.StringIO()):
         b = run(scene, n_steps, method="pallas", steps_per_dispatch=n_steps,
                 state=s0, device=dev, **RESIDENT)
@@ -3218,6 +3521,7 @@ def phase_decomp_fast(name: str, dev) -> dict:
            "backend": "nccl", "steps": n_steps, "run": dict(RESIDENT),
            "spec": dataclasses.asdict(specs[0]), "spec_builds": len(specs),
            **hl, "agreement": agree, "launches": launches, "policy": pol,
+           "first_passes": passes, "bitwise_fresh_storage": True,
            "audit_notes": notes.getvalue().strip().splitlines(),
            "ms_per_step": wall / n_steps * 1e3,
            "ms_per_step_turns": turns,
@@ -3245,8 +3549,8 @@ def phase_decomp_fast(name: str, dev) -> dict:
 def phase_decomp_classic(dev) -> dict:
     """The classic fast-path form (slot_resident=False: pinned addressing
     and ghosts, a fresh scatter and the split K1/K2 each step) through
-    make_audited_spatial_advance at dam3d_100k, one 200-step dispatch on
-    the one-rank world: health, K1/K2 launched once a step (twice if the
+    make_audited_spatial_advance at dam3d_100k, one dispatch of
+    DECOMP_STEPS on the one-rank world: health, K1/K2 launched once a step (twice if the
     audit re-ran the dispatch per step), against the single-device
     non-resident reuse run slot by slot."""
     from sph_tpu_torch import decomp, default_skin, init, preset, prime, run
@@ -4054,6 +4358,9 @@ def main() -> int:
               f"no K3/K4/K5 launch on resident4auto at {name}")
         check(out["policy"]["repair_k"] == sph.step.DEFAULT_REPAIR_K,
               f"repair_k resolves to the production default at {name}")
+        check(out["first_passes"]["occupied"] > 0,
+              f"first slot_pre passes over the occupied groups only on "
+              f"resident4auto at {name}: {out['first_passes']}")
     n_e = DEPTH["emitters3d@settled"]
     fits = sph.packed_fits(scene_e, settled, 4)
     out = runs["resident:auto"] = phase_path(
@@ -4088,6 +4395,7 @@ def main() -> int:
           and launches["slot_density"] == launches["slot_force"] == 4 * healed,
           "pinned packed resident: K3/K4 once a step, K1/K2 only in heals")
     phase_resident_agreement(dev)
+    storage = phase_slot_storage(dev, settled, scene_e)
     for name, n_prof in (("dam3d_100k", 12), ("splash3d_1m", 12)):
         scene = sph.preset(name)
         phase_profile_resident(name, scene, sph.init(scene, device=dev),
@@ -4343,6 +4651,15 @@ def main() -> int:
                            for p in ("dam3d_100k", "splash3d_1m")},
             **soak_of(name),
         })
+        if name == "slot_pre":
+            kernels[-1]["first_passes"] = {
+                **{f"resident4auto {p}": runs[f"resident:{p}"][
+                    "first_passes"] for p in ("dam3d_100k", "splash3d_1m")},
+                **{f"{r['preset']} {r['run']}": r["first_passes"]
+                   for r in storage},
+                **{f"decomp_fast {p}": fast_runs[p]["first_passes"]
+                   for p in ("dam3d_100k", "splash3d_1m")},
+                "soak_1m": soaks["soak_1m"]["first_passes"]}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

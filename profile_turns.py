@@ -16,7 +16,8 @@ own, each printed as one JSON line:
              dam3d_100k and splash3d_1m on cap 16 and the cap-8 policy,
              pinned packed rows at emitters3d@settled, and the one-rank
              slab fast path (NCCL) at both presets: device ms, operations
-             a step and busy share
+             a step and busy share (and the resident dispatches' blocks by
+             first slot_pre, where the package counts them)
   bench_row  PROFILE_ROWS through `bench_step.bench_one` (100 steps)
 """
 

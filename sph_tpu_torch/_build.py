@@ -61,9 +61,10 @@ SIGNATURES = {
     },
     "slot_pass_kernels": {
         "slot_pre": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
-        "slot_post": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
-                      _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                     _P),
+        "slot_post": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P,
+                      _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
         "slot_post_consts_bytes": (),
     },
     "stage_kernels": {

@@ -806,7 +806,7 @@ class _SlabSlots:
         self._put_ghosts(xs, pins, g[:, 0:self.d])
         self._put_ghosts(vs, pins, g[:, 3:3 + self.d])
 
-    def steps(self, c, use_mem: bool, budget=None):
+    def steps(self, c, use_mem: bool, budget=None, store=None):
         """`step._slot_steps` from the carry `c` (addr, xs, vs, acc, movb,
         x0s, refs, jb, pins, step0, drifted): each step's drift exchanges
         the pinned faces' (x, v) into the ghost slots (not step 0 of a
@@ -814,8 +814,10 @@ class _SlabSlots:
         (rho, p) before K2, and with `use_mem` the drift audit is relaxed
         by cell membership except past a slab face; with a `budget` the
         block's end also counts the membership rebuild predicate's slots,
-        the face distance its extra margin.  Returns (xs, vs, acc, rp,
-        viol, risky)."""
+        the face distance its extra margin; `store`: the dispatch's
+        `slot_pass.SlotStore` (the ghosts are particles of the addressing,
+        so their slots lie in the occupied groups).  Returns (xs, vs, acc,
+        rp, viol, risky)."""
         pins, slab = c["pins"], self.slab
 
         def rp_hook(rp):
@@ -828,7 +830,7 @@ class _SlabSlots:
             self.sp, c, self.sort_every, self.half2, use_mem, self.leap,
             exchange=lambda xs, vs: self.exchange(xs, vs, pins),
             rp_hook=rp_hook, ci_offset=slab.ci_off, faces=slab,
-            budget=budget)
+            budget=budget, store=store)
 
     def rp_face(self, rp, f):
         """The (rho, p) of a pinned face from K1's rp (rest density and 0
@@ -1053,6 +1055,7 @@ def _make_spatial_resident_auto(
     def advance(loc: State):
         dev = loc.x.device
         res = slots_on(dev)
+        store = slot_pass.SlotStore(sg, d, False, dev)
         i32 = dict(dtype=torch.int32, device=dev)
 
         def enter(sh, at_step) -> dict:
@@ -1153,7 +1156,8 @@ def _make_spatial_resident_auto(
                                   slab.face_margin(x_now[:, ax]), interior))
 
             def apply_repair(c, plan):
-                c2 = apply_t(c, plan)
+                c2 = apply_t(c, plan, store.filled(c))
+                store.readdress(c["addr"], c2["addr"])
                 # advance the repaired particles' plan anchors, or they
                 # stay phantom-risky against their old cells
                 sh = c["shadow"]
@@ -1207,12 +1211,12 @@ def _make_spatial_resident_auto(
                 shB = c["shadow"]
                 sl = {k: c[k] for k in ("addr", "movb", "refs", "jb", "acc",
                                         "x0s", "pins", "build_step", "xs",
-                                        "vs")}
+                                        "vs", "feat")}
                 sl["drifted"] = False
                 audit = torch.zeros((), **i32)
             sl["step0"] = step0
             xs, vs, acc_s, rp, viol, risky = res.steps(
-                sl, use_mem, budget if fused_need else None)
+                sl, use_mem, budget if fused_need else None, store)
             blk_audit = c["pend"] + audit + viol
             ok_carry = {**sl, "xs": xs, "vs": vs, "acc": acc_s, "rp": rp,
                         "shadow": shB, "step": step0 + sort_every,

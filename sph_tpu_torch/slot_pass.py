@@ -23,10 +23,15 @@ it), so no step concatenates a feature array; bf16 features add
 Both update in place and visit only the occupied 128-lane groups (rows
 1..n_occ, gcounts > 0), as K1/K2 do: the plain sequence leaves an empty
 slot unchanged bit for bit, so the whole arrays come out the same.  A
-block's first `slot_pre` (`first=True`) instead writes every slot of the
-block's fresh storage from the carry, and zeroes its acc and count: the
-carry stays the block's top, which a heal re-runs from and a repair plans
-on.
+block's first `slot_pre` (`first=True`) reads the carry, the block's top,
+and writes the block's own storage, since the top stays as it is for a
+heal to re-run from and a repair to plan on.  The storage outlives the
+block (`SlotStore`): the two arrays alternate, and the one that held the
+last accepted block's top already holds, outside the occupied groups,
+what a pass over every slot would write there.  So the first pass visits
+the occupied groups too; only a storage not yet filled under the block's
+addressing gets the pass over every slot (`full=True`, which also zeroes
+acc).
 
 The plain versions are the PyTorch sequence the resident block ran before
 these kernels, op for op, writing only where the kernels write; they run
@@ -40,6 +45,7 @@ source; PERF.md holds their times.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -51,10 +57,23 @@ from sph_tpu_torch.slot_kernels import FEAT, LANE, _f32, _raise_on, _stream
 #: kernel launches per wrapper since the last `reset_launches()`
 LAUNCHES = {"slot_pre": 0, "slot_post": 0}
 
+#: resident blocks run on a `SlotStore` since the last `reset_launches()`:
+#: by their first slot_pre, over every slot (`full`) or over the occupied
+#: groups (`occupied`), and by where their top came from: a build of the
+#: addressing, a repair of it, or the block before (`plain`)
+BLOCKS = {"full": 0, "occupied": 0, "after_build": 0, "after_repair": 0,
+          "plain": 0}
+
+#: True: every block runs on fresh storage with the full first pass, as
+#: before the storage outlived the block; the sequence the persistent
+#: storage is held to, bit for bit
+FRESH_STORAGE = False
+
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BLOCKS):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -172,24 +191,28 @@ def face_margin(faces, xs):
 
 
 class SlotBlock:
-    """One resident block's storage, made fresh for each block: `feat`
-    (fp32, K1/K2's features and the block's x and v), `feat16` (bf16
-    features, or None), `acc` [c_rows, d, lanes], the violation `count`
-    and the `risky` slots of the rebuild predicate at its end (int32,
-    0-d).  Its first `slot_pre` fills every element."""
+    """One resident block's storage: `feat` (fp32, K1/K2's features and the
+    block's x and v), `feat16` (bf16 features, or None), `acc` [c_rows, d,
+    lanes], the violation `count` and the `risky` slots of the rebuild
+    predicate at its end (int32, 0-d).  `feat` and `acc` may be given: a
+    build's scatter array and its zero acc.  `addr` is the addressing
+    under which its slots outside the occupied groups hold what a full
+    first pass writes there (None: not filled)."""
 
     def __init__(self, c_rows: int, lanes: int, d: int, bf16: bool,
-                 device) -> None:
+                 device, feat=None, acc=None) -> None:
         f32 = torch.float32
         self.d = d
-        self.feat = torch.empty((c_rows, FEAT, lanes), dtype=f32,
-                                device=device)
+        self.feat = (torch.empty((c_rows, FEAT, lanes), dtype=f32,
+                                 device=device) if feat is None else feat)
         self.feat16 = (torch.empty((c_rows, FEAT, lanes),
                                    dtype=torch.bfloat16, device=device)
                        if bf16 else None)
-        self.acc = torch.empty((c_rows, d, lanes), dtype=f32, device=device)
+        self.acc = (torch.empty((c_rows, d, lanes), dtype=f32, device=device)
+                    if acc is None else acc)
         self.count = torch.empty((), dtype=torch.int32, device=device)
         self.risky = torch.empty((), dtype=torch.int32, device=device)
+        self.addr = None
 
     @property
     def xs(self):
@@ -203,6 +226,114 @@ class SlotBlock:
     def kernel_feat(self):
         """The features K1/K2 read."""
         return self.feat if self.feat16 is None else self.feat16
+
+
+class SlotStore:
+    """The storage of a dispatch's resident blocks, which outlives the
+    block: at most two `SlotBlock`s that alternate.  A block writes the one
+    that does not hold its top, the carry it starts from, nor the last
+    block's storage (a carry rebuilt from the last block's end holds that
+    block's arrays until the new block's verdict: the slab fast path heals
+    such a block from them); once the block ran, its top's array is the
+    next block's storage.
+
+    Under one addressing, no pass writes a slot outside the occupied
+    groups, so a storage filled once for it (`SlotBlock.addr`) holds there
+    what a full first pass would write (x the build's empty value, v +0,
+    acc +0): its first slot_pre visits the occupied groups only.  Any other
+    storage gets the full pass.  A repair re-homes particles between
+    groups, so it patches every filled storage at the same slots
+    (`filled`) and re-keys them to its addressing (`readdress`).
+
+    The build's own scatter array (the carry's `feat`, with its zero acc)
+    joins as a storage once the first block after the build ran: that
+    block's full pass copies the build's positions, the drift audit's
+    reference `x0s` until then a view of the array, into the store's `x0`.
+    With bf16 features, and for a carry whose x and v are not a feature
+    array (the packed_scatter transport), the build's arrays do not join,
+    and the first two blocks after a build get the full pass."""
+
+    def __init__(self, sg, d: int, bf16: bool, device) -> None:
+        self.make = (sg.c_rows, sg.lanes, d, bf16, device)
+        self.bf16 = bf16
+        self.halves: list[SlotBlock] = []
+        self.last_blk = None    # the storage the last block ran in
+        self.x0 = None
+        self.last = None        # the addressing of the last block taken
+        self.repaired = None    # the addressing the last repair made
+        self._tiles = (None, None)
+
+    def tiles(self, addr) -> tuple:
+        """`occupied_tiles` of `addr`, made once per addressing."""
+        if self._tiles[0] is not addr:
+            self._tiles = (addr, occupied_tiles(addr.gcounts, addr.n_occ))
+        return self._tiles[1]
+
+    def take(self, c):
+        """(storage, full, x0) for the block whose top is the carry `c`:
+        the storage not holding the top, whether its first slot_pre runs
+        over every slot, and the array it copies the top's x into (or
+        None).  Counts the block in `BLOCKS`."""
+        addr = c["addr"]
+        kind = ("plain" if addr is self.last
+                else "after_repair" if addr is self.repaired
+                else "after_build")
+        BLOCKS[kind] += 1
+        self.last = addr
+        if FRESH_STORAGE:
+            BLOCKS["full"] += 1
+            return SlotBlock(*self.make), True, None
+        top = c["xs"].data_ptr()
+        free = [h for h in self.halves
+                if h.feat.data_ptr() != top and h is not self.last_blk]
+        blk = next((h for h in free if h.addr is addr),
+                   free[0] if free else None)
+        if blk is None:
+            blk = SlotBlock(*self.make)
+            self.halves.append(blk)
+        full = blk.addr is not addr
+        x0 = None
+        if full and self._joins(c) and c["x0s"].data_ptr() == top:
+            if self.x0 is None:
+                self.x0 = torch.empty_like(c["acc"])
+            x0 = self.x0
+        BLOCKS["full" if full else "occupied"] += 1
+        blk.addr = None
+        return blk, full, x0
+
+    def done(self, c, blk) -> None:
+        """The block from the top `c` ran in `blk`: `blk` is filled for
+        `c`'s addressing, and the build's scatter array joins once its x
+        was copied out."""
+        if FRESH_STORAGE:
+            return
+        blk.addr = c["addr"]
+        self.last_blk = blk
+        if self._joins(c) and c["x0s"].data_ptr() != c["feat"].data_ptr():
+            built = SlotBlock(*self.make, feat=c["feat"], acc=c["acc"])
+            built.addr = c["addr"]
+            self.halves = [blk, built]
+
+    def _joins(self, c) -> bool:
+        """The top is a build's own scatter array, in fp32."""
+        feat = c.get("feat")
+        return (not self.bf16 and feat is not None
+                and c["xs"].data_ptr() == feat.data_ptr())
+
+    def filled(self, c) -> list:
+        """The storages besides `c`'s top filled for `c`'s addressing,
+        which a repair of it patches."""
+        top = c["xs"].data_ptr()
+        return [h for h in self.halves
+                if h.addr is c["addr"] and h.feat.data_ptr() != top]
+
+    def readdress(self, old, new) -> None:
+        """A repair turned addressing `old` into `new`, with every filled
+        storage patched."""
+        for h in self.halves:
+            if h.addr is old:
+                h.addr = new
+        self.repaired = new
 
 
 class SlotBody:
@@ -345,12 +476,44 @@ class PostPlan:
 # ---------------------------------------------------------------------------
 
 
+def _occupied(gcounts, n_occ):
+    """[c_rows, n_groups] bool: the occupied 128-lane groups of rows
+    1..n_occ."""
+    rows = torch.arange(gcounts.shape[0], device=gcounts.device)
+    live = (rows >= 1) & (rows <= n_occ)
+    return (gcounts[:, 0, :] > 0) & live[:, None]
+
+
+def occupied_tiles(gcounts, n_occ) -> tuple:
+    """(tiles, n_tiles): the occupied (row, 128-lane group) tiles, row ·
+    n_groups + group in row-major order, first in an int32 list of every
+    tile's length, and their count, int32 [1], on the device (no host
+    sync).  The kernels walk tiles[0..n_tiles); made once per
+    addressing."""
+    occ = _occupied(gcounts, n_occ).reshape(-1)
+    n = occ.numel()
+    pos = torch.cumsum(occ, 0, dtype=torch.int32)
+    tiles = torch.zeros(n + 1, dtype=torch.int32, device=occ.device)
+    tiles.index_put_((torch.where(occ, pos - 1, n).long(),),
+                     torch.arange(n, dtype=torch.int32, device=occ.device))
+    return tiles[:n], pos[-1:]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tile_blocks(dev, n: int) -> int:
+    """The blocks that walk a tile list: enough to fill the card (16 blocks
+    of 128 threads an SM), at most one a tile."""
+    return min(n, 16 * _sm_count(dev.index or 0))
+
+
 def _visit(gcounts, n_occ, lanes: int):
     """[c_rows, 1, lanes] bool: the slots of the occupied 128-lane groups
     of rows 1..n_occ, where the kernels write (no host sync)."""
-    rows = torch.arange(gcounts.shape[0], device=gcounts.device)
-    live = (rows >= 1) & (rows <= n_occ)
-    occ = (gcounts[:, 0, :] > 0) & live[:, None]
+    occ = _occupied(gcounts, n_occ)
     return occ.repeat_interleave(LANE, dim=1)[:, None, :]
 
 
@@ -361,25 +524,34 @@ def _put(dst, vals, visit) -> None:
 
 def slot_pre_plain(blk: SlotBlock, xs, vs, acc, movb, gcounts, n_occ,
                    dt: float, kick: bool, drift: bool, first: bool,
-                   centers=None) -> None:
+                   centers=None, full=None, x0=None) -> None:
     """Plain version of `slot_pre` (same arguments)."""
+    full = first if full is None else full
     d = blk.d
     c_rows, _, lanes = blk.feat.shape
     mov = movb.to(torch.float32)
+    if x0 is not None:
+        x0.copy_(xs)
     if kick:
         vs = vs + (0.5 * dt) * acc * mov
     if drift:
         xs = xs + dt * vs * mov
     zrow = torch.zeros((c_rows, 3 - d, lanes), device=xs.device)
-    visit = None if first else _visit(gcounts, n_occ, lanes)
-    _put(blk.feat, torch.cat([xs, zrow, vs, zrow, mov, torch.zeros_like(mov)],
-                             dim=1), visit)
+    visit = None if full else _visit(gcounts, n_occ, lanes)
+    if full:
+        blk.feat.copy_(torch.cat([xs, zrow, vs, zrow, mov,
+                                  torch.zeros_like(mov)], dim=1))
+        blk.acc.zero_()
+    else:
+        if first or drift:
+            _put(blk.xs, xs, visit)
+        if first or kick:
+            _put(blk.vs, vs, visit)
     if blk.feat16 is not None:
         z2 = torch.zeros((c_rows, 2, lanes), device=xs.device)
         _put(blk.feat16, torch.cat([xs - centers, zrow, vs, zrow, z2],
                                    dim=1).to(torch.bfloat16), visit)
     if first:
-        blk.acc.zero_()
         blk.count.zero_()
         blk.risky.zero_()
 
@@ -449,20 +621,39 @@ def _check(name: str, t, dtype, dev, shape, lanes: int = 0) -> int:
     return t.stride(0)
 
 
+def _tiles(tiles, gcounts, n_occ, dev) -> tuple:
+    """`tiles` checked, or the tile list of `gcounts` and `n_occ` made."""
+    if tiles is None:
+        return occupied_tiles(gcounts, n_occ)
+    tl, n_tiles = tiles
+    _check("tiles", tl, torch.int32, dev, (gcounts.shape[0]
+                                           * gcounts.shape[2],))
+    _check("n_tiles", n_tiles, torch.int32, dev, (1,))
+    return tl, n_tiles
+
+
 def _count(name: str) -> None:
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         LAUNCHES[name] += 1
 
 
 def slot_pre(blk: SlotBlock, xs, vs, acc, movb, gcounts, n_occ, dt: float,
-             kick: bool, drift: bool, first: bool, centers=None) -> None:
+             kick: bool, drift: bool, first: bool, centers=None, full=None,
+             x0=None, tiles=None) -> None:
     """The step's kick (`kick`: v += fp32(dt/2)·acc·mov) and drift
     (`drift`: x += fp32(dt)·v·mov) of `xs`, `vs` into `blk.feat` (and the
     bf16 view into `blk.feat16`, relative to `centers` [c_rows, d,
-    lanes]).  `first`: every slot, from the carry's arrays, and `blk.acc`,
-    `blk.count` zeroed; else in place (`xs`, `vs`, `acc` are the block's
-    own) over the occupied groups of `gcounts` [c_rows, 1, n_groups] and
-    `n_occ` [1]."""
+    lanes]), over the occupied groups of `gcounts` [c_rows, 1, n_groups]
+    and `n_occ` [1].  `first`: the block's first pass, from the top's
+    arrays into the block's storage, with `blk.count` and `blk.risky`
+    zeroed; else in place (`xs`, `vs`, `acc` are the block's own).
+    `full` (default: `first`): a first pass over every slot, which also
+    writes the pads and mov and zeroes `blk.acc`, and with `x0` [c_rows,
+    d, lanes] copies the top's x into it.  `tiles`: the addressing's
+    `occupied_tiles` (made here when not given)."""
+    full = first if full is None else full
+    if full and not first:
+        raise ValueError("a full slot_pre is a block's first")
     d = blk.d
     c_rows, _, lanes = blk.feat.shape
     dev = blk.feat.device
@@ -476,36 +667,47 @@ def slot_pre(blk: SlotBlock, xs, vs, acc, movb, gcounts, n_occ, dt: float,
     bf16 = blk.feat16 is not None
     if bf16:
         _check("centers", centers, torch.float32, dev, shape)
+    if x0 is not None:
+        if not full:
+            raise ValueError("x0 is copied by a full slot_pre")
+        _check("x0", x0, torch.float32, dev, shape)
+    own = (xs.data_ptr() == blk.xs.data_ptr()
+           and vs.data_ptr() == blk.vs.data_ptr())
+    if own == first:
+        raise ValueError("an in-place slot_pre takes the block's own xs, vs;"
+                         " a block's first the top's")
     if dev.type == "cpu":
         return slot_pre_plain(blk, xs, vs, acc, movb, gcounts, n_occ, dt,
-                              kick, drift, first, centers)
-    if not first and not (xs.data_ptr() == blk.xs.data_ptr()
-                          and vs.data_ptr() == blk.vs.data_ptr()):
-        raise ValueError("an in-place slot_pre takes the block's own xs, vs")
+                              kick, drift, first, centers, full, x0)
+    n_groups = lanes // LANE
+    tl, n_tiles = (None, None) if full else _tiles(tiles, gcounts, n_occ, dev)
     lib = _build.library("slot_pass_kernels")
     rc = lib.slot_pre(
         xs.data_ptr(), rs[0], vs.data_ptr(), rs[1],
         acc.data_ptr() if kick else None, a_rs, movb.data_ptr(),
         blk.feat.data_ptr(), blk.feat16.data_ptr() if bf16 else None,
         centers.data_ptr() if bf16 else None,
-        blk.acc.data_ptr(), blk.count.data_ptr(), blk.risky.data_ptr(),
-        gcounts.data_ptr(),
-        n_occ.data_ptr(), c_rows, lanes, lanes // LANE, d, int(first),
-        int(kick), int(drift), _f32(0.5 * dt), _f32(dt), dev.index or 0,
-        _stream(dev))
+        blk.acc.data_ptr(), x0.data_ptr() if x0 is not None else None,
+        blk.count.data_ptr(), blk.risky.data_ptr(),
+        tl.data_ptr() if tl is not None else None,
+        n_tiles.data_ptr() if tl is not None else None,
+        _tile_blocks(dev, c_rows * n_groups), c_rows, lanes, n_groups, d,
+        int(first), int(full), int(kick), int(drift), _f32(0.5 * dt),
+        _f32(dt), dev.index or 0, _stream(dev))
     _raise_on(rc, "slot_pre")
     _count("slot_pre")
 
 
 def slot_post(blk: SlotBlock, rp, f, x0s, movb, addr, plan: PostPlan,
-              step0, i: int, last: bool = False) -> None:
+              step0, i: int, last: bool = False, tiles=None) -> None:
     """The rest of step `step0 + i` after K2, in place on `blk` over the
     occupied groups of `addr`: body forces from K1's `rp` and K2's `f`,
     acc, the second half-kick (or Euler's v and x), clamp walls, and the
     drift audit against `x0s` (the build's positions) added into
     `blk.count`; at the block's `last` step, with a `plan.budget`, the
     rebuild predicate's slots added into `blk.risky`.  `step0` is the
-    block's first step, an int32 0-d tensor read on the device."""
+    block's first step, an int32 0-d tensor read on the device; `tiles`
+    the addressing's `occupied_tiles` (made here when not given)."""
     d = blk.d
     c_rows, _, lanes = blk.feat.shape
     dev = blk.feat.device
@@ -523,16 +725,19 @@ def slot_post(blk: SlotBlock, rp, f, x0s, movb, addr, plan: PostPlan,
     if dev.type == "cpu":
         return slot_post_plain(blk, rp, f, x0s, movb, addr, plan, step0, i,
                                last)
+    n_groups = lanes // LANE
+    tl, n_tiles = _tiles(tiles, addr.gcounts, addr.n_occ, dev)
     lib = _build.library("slot_pass_kernels")
     n_f = len(body.fields)
     rc = lib.slot_post(
         blk.feat.data_ptr(), blk.acc.data_ptr(), rp.data_ptr(), f.data_ptr(),
         x0s.data_ptr(), x0_rs, movb.data_ptr(), addr.row_code.data_ptr(),
-        addr.gcounts.data_ptr(), addr.n_occ.data_ptr(),
+        tl.data_ptr(), n_tiles.data_ptr(),
+        _tile_blocks(dev, c_rows * n_groups),
         step0.data_ptr() if n_f else None, i,
         body.ff_f.data_ptr(), body.ff_i.data_ptr(), n_f,
         blk.count.data_ptr(), blk.risky.data_ptr(),
         int(last and plan.budget is not None), ctypes.addressof(plan.consts),
-        c_rows, lanes, lanes // LANE, d, dev.index or 0, _stream(dev))
+        lanes, n_groups, d, dev.index or 0, _stream(dev))
     _raise_on(rc, "slot_post")
     _count("slot_post")

@@ -357,52 +357,56 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
                     old_row=old_row, old_pos=old_pos,
                     new_row=new_row, new_pos=new_pos)
 
-    def apply(c, plan_d):
-        """Patched slot arrays + addr (pure re-addressing: the particle state
-        this carry materializes is bitwise unchanged).  Does not touch the
-        caller's shadow: the caller advances shadow.x to x_m at the repaired
-        pids, or they stay phantom-risky against their old anchors."""
+    def apply(c, plan_d, also=()):
+        """Patch the carry's six slot arrays IN PLACE and return it with
+        the new addr (pure re-addressing: the particle state this carry
+        materializes is bitwise unchanged), and the x, v and acc of each
+        `slot_pass.SlotBlock` in `also` at the same slots with the same
+        values (the other storage filled for this addressing, see
+        `slot_pass.SlotStore`).  Does not touch the caller's shadow: the
+        caller advances shadow.x to x_m at the repaired pids, or they stay
+        phantom-risky against their old anchors."""
         addr = c["addr"]
         dev = addr.pos.device
         vm = plan_d["vm"]
-        old_row, old_pos = plan_d["old_row"].long(), plan_d["old_pos"].long()
-        new_row, new_pos = plan_d["new_row"].long(), plan_d["new_pos"].long()
+        zero_i = torch.zeros_like(plan_d["old_row"]).long()
+        old_row, old_pos, new_row, new_pos = (
+            torch.where(vm, plan_d[k].long(), zero_i)
+            for k in ("old_row", "old_pos", "new_row", "new_pos"))
 
-        def idx(arr, row, pos):
-            """[ncols·K] flat element indices of the movers' slots in `arr`,
-            the spare element `arr.numel()` for the non-movers."""
+        def take(arr):
+            """[ncols, K] values of the movers' old slots."""
+            return arr[old_row, :, old_pos].T
+
+        def put(arr, row, pos, vals):
+            """arr[row, :, pos] = vals [ncols, K] for the movers, in place;
+            the others write the dummy slot (row 0, lane 0) its own
+            value."""
             ncols = arr.shape[1]
+            keep = torch.where(vm[None, :], vals, arr[0, :, 0][:, None])
             cols = torch.arange(ncols, device=dev)[:, None]
-            flat = (row[None, :] * ncols + cols) * sg.lanes + pos[None, :]
-            return torch.where(vm[None, :], flat, arr.numel()).reshape(-1)
+            arr.index_put_((row[None, :], cols, pos[None, :]), keep)
 
         def move(arr, new_vals, old_vals):
             """Per-axis slot move: sentinel the old slots FIRST so a
             same-cell re-home landing on its own lane keeps the value."""
-            flat_a = torch.cat([arr.reshape(-1), arr.new_zeros(1)])
-            flat_a.index_put_((idx(arr, old_row, old_pos),),
-                              old_vals.reshape(-1))
-            flat_a.index_put_((idx(arr, new_row, new_pos),),
-                              new_vals.reshape(-1))
-            return flat_a[:arr.numel()].reshape(arr.shape)
-
-        def take(arr):
-            """[ncols, K] values of the movers' old slots."""
-            flat = idx(arr, old_row, old_pos)
-            flat = torch.where(flat < arr.numel(), flat, 0)
-            return arr.reshape(-1)[flat].reshape(arr.shape[1], -1)
+            put(arr, old_row, old_pos, old_vals)
+            put(arr, new_row, new_pos, new_vals)
 
         x_cols = plan_d["x_m"].T
         far = torch.full_like(x_cols, 1e18)
         zero = torch.zeros_like(x_cols)
         rp_cols = take(c["rp"])
-        xs = move(c["xs"], x_cols, far)
-        vs = move(c["vs"], take(c["vs"]), zero)
-        acc = move(c["acc"], take(c["acc"]), zero)
-        x0s = move(c["x0s"], x_cols, far)
-        rp = move(c["rp"], rp_cols, torch.zeros_like(rp_cols))
-        movb = move(c["movb"], torch.ones_like(vm)[None, :],
-                    torch.zeros_like(vm)[None, :])
+        v_cols, a_cols = take(c["vs"]), take(c["acc"])
+        for xs, vs, acc in [(c["xs"], c["vs"], c["acc"])] + [
+                (h.xs, h.vs, h.acc) for h in also]:
+            move(xs, x_cols, far)
+            move(vs, v_cols, zero)
+            move(acc, a_cols, zero)
+        move(c["x0s"], x_cols, far)
+        move(c["rp"], rp_cols, torch.zeros_like(rp_cols))
+        move(c["movb"], torch.ones_like(vm)[None, :],
+             torch.zeros_like(vm)[None, :])
 
         n_g = addr.gcounts.numel()
         gfl = torch.cat([addr.gcounts.reshape(-1),
@@ -424,12 +428,11 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
 
         addr2 = dataclasses.replace(
             addr,
-            pos=patch(addr.pos, new_pos),
-            row_pos=patch(addr.row_pos, new_row),
+            pos=patch(addr.pos, plan_d["new_pos"]),
+            row_pos=patch(addr.row_pos, plan_d["new_row"]),
             gcounts=gfl[:n_g].reshape(addr.gcounts.shape),
         )
-        return {**c, "addr": addr2, "xs": xs, "vs": vs, "acc": acc,
-                "x0s": x0s, "rp": rp, "movb": movb}
+        return {**c, "addr": addr2}
 
     return plan, apply
 
@@ -471,19 +474,24 @@ class _SlotPhysics(slot_pass.SlotBody):
 
 def _slot_steps(sp: _SlotPhysics, c, sort_every: int, half2: float,
                 use_mem: bool, leap: bool, exchange=None, rp_hook=None,
-                ci_offset=None, faces=None, budget=None):
+                ci_offset=None, faces=None, budget=None, store=None):
     """`sort_every` steps integrated in slot space from the carry `c`
     (xs, vs, acc, x0s, movb, addr, ...), with the per-step drift audit:
     each step `slot_pass.slot_pre` (kick, drift, features), K1, K2 and
-    `slot_pass.slot_post` (body forces, integration, audit) on a fresh
-    `slot_pass.SlotBlock`, so the carry's arrays stay as they are.
-    Returns (xs, vs, acc, rp, violations, risky): xs and vs are views of
-    the block's feature array, the counts device scalars; `risky` (None
-    without a `budget`) counts the slots of the membership rebuild
-    predicate on the block's end (`slot_pass.membership_risky`, the
-    faces its extra margin), which the last slot_post computes.  The
-    leapfrog block-top kick uses `c["acc"]` (None on a fresh carry, whose
-    kick was pre-applied in particle space).
+    `slot_pass.slot_post` (body forces, integration, audit) on a
+    `slot_pass.SlotBlock` that is not the carry's, so the carry's arrays
+    stay as they are: a fresh one, or the one `store` (a
+    `slot_pass.SlotStore`) gives, whose first pass then visits only the
+    occupied groups when the storage is filled for the carry's
+    addressing.  Where the store's full first pass copies the build's
+    positions out of the carry's scatter array, `c["x0s"]` becomes that
+    copy (the same values).  Returns (xs, vs, acc, rp, violations, risky):
+    xs and vs are views of the block's feature array, the counts device
+    scalars; `risky` (None without a `budget`) counts the slots of the
+    membership rebuild predicate on the block's end
+    (`slot_pass.membership_risky`, the faces its extra margin), which the
+    last slot_post computes.  The leapfrog block-top kick uses `c["acc"]`
+    (None on a fresh carry, whose kick was pre-applied in particle space).
 
     The hooks of a slab (`decomp._SlabSlots`, whose carries hold an acc):
     `exchange(xs, vs)` writes the ghost slots in place after each step's
@@ -499,7 +507,15 @@ def _slot_steps(sp: _SlotPhysics, c, sort_every: int, half2: float,
     if bf16 and exchange is not None:
         raise ValueError("the slab hooks take fp32 features")
     centers = sp.slot_centers(addr) if bf16 else None
-    blk = slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, bf16, movb.device)
+    if store is None:
+        blk, full, x0 = (slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, bf16,
+                                             movb.device), True, None)
+    else:
+        blk, full, x0 = store.take(c)
+    tiles = None           # the kernels' walk of the occupied groups
+    if movb.is_cuda:
+        tiles = (slot_pass.occupied_tiles(addr.gcounts, addr.n_occ)
+                 if store is None else store.tiles(addr))
     plan = slot_pass.PostPlan(sp, leap, half2, use_mem, ci_offset, faces,
                               budget, sort_every)
     xs, vs, acc = c["xs"], c["vs"], c["acc"]
@@ -510,7 +526,11 @@ def _slot_steps(sp: _SlotPhysics, c, sort_every: int, half2: float,
         drift = leap and moved
         if i == 0 or kick or drift or bf16:
             slot_pass.slot_pre(blk, xs, vs, acc, movb, addr.gcounts,
-                               addr.n_occ, dt, kick, drift, i == 0, centers)
+                               addr.n_occ, dt, kick, drift, i == 0, centers,
+                               full=full and i == 0, x0=x0 if i == 0 else None,
+                               tiles=tiles)
+        if i == 0 and x0 is not None:
+            c["x0s"] = x0
         xs, vs, acc = blk.xs, blk.vs, blk.acc
         if exchange is not None and moved:
             exchange(xs, vs)
@@ -520,7 +540,9 @@ def _slot_steps(sp: _SlotPhysics, c, sort_every: int, half2: float,
             rp_hook(rp)
         f_s = pallas_step._call_force(feat, rp, addr, sg, params, jb)
         slot_pass.slot_post(blk, rp, f_s, c["x0s"], movb, addr, plan,
-                            c["step0"], i, i == sort_every - 1)
+                            c["step0"], i, i == sort_every - 1, tiles=tiles)
+    if store is not None:
+        store.done(c, blk)
     return xs, vs, acc, rp, blk.count, None if budget is None else blk.risky
 
 
@@ -536,7 +558,7 @@ def _scatter_residency(x, v, act, movable, grid, sg, use_mem: bool,
     feat = pallas_step.scatter_slots(addr, rows, sg)
     xs = feat[:, 0:d, :]
     return dict(
-        addr=addr, xs=xs, vs=feat[:, 3:3 + d, :], x0s=xs,
+        addr=addr, feat=feat, xs=xs, vs=feat[:, 3:3 + d, :], x0s=xs,
         movb=feat[:, 6:7, :] > 0,
         refs=slot_pass.slot_bin_refs(addr, sg) if use_mem else None,
         jb=pallas_step._jblocks(addr, sg) if sg.packed else None,
@@ -690,6 +712,11 @@ def _make_resident_auto_advance(
     in 3D instead of 7, unpacked right after; the kernels stay fp32 and
     each rebuild costs one bf16 round trip of x and v.
 
+    The blocks of a dispatch share one `slot_pass.SlotStore`: a block
+    writes the storage its top does not hold, and a block whose storage is
+    filled for its addressing runs its first slot_pre over the occupied
+    groups only; a repair patches the filled storage in place.
+
     The reference decides each block inside its scan with `lax.cond`; here
     the decisions are fetched to the host, batched: the next block's `need`
     is computed on the un-healed carry beside this block's audit count and
@@ -816,8 +843,9 @@ def _make_resident_auto_advance(
             act0 = s.active
             return plan_t(c, s.x, act0, act0 & (s.kind == 0))
 
-        def apply_repair(c, plan):
-            c2 = apply_t(c, plan)
+        def apply_repair(c, plan, store):
+            c2 = apply_t(c, plan, store.filled(c))
+            store.readdress(c["addr"], c2["addr"])
             # advance the repaired particles' plan anchors (shadow.x is x0
             # in plan_repair), else they stay phantom-risky against their
             # OLD cell; materialize and heal read shadow.x only for
@@ -831,6 +859,7 @@ def _make_resident_auto_advance(
 
     def advance(state: State):
         _on(state, dev)
+        store = slot_pass.SlotStore(sg, d, params.precision == "bf16", dev)
         c = enter_slots(state)
         healed, rebuilds, repairs = 0, 1, 0
         need_t, act_t = need_of(c)
@@ -842,7 +871,7 @@ def _make_resident_auto_advance(
                 if repair_k:
                     plan = plan_repair(c)
                     if _fetch(plan["can"] & ~act_t)[0]:
-                        c = apply_repair(c, plan)
+                        c = apply_repair(c, plan, store)
                         repairs += 1
                     else:
                         c = rebuild(c)
@@ -853,7 +882,7 @@ def _make_resident_auto_advance(
             c["step0"] = c["shadow"].step
             xs, vs, acc_s, rp, viol_blk, risky = _slot_steps(
                 sp, c, sort_every, half2, use_mem, leap,
-                budget=budget if fused_need else None)
+                budget=budget if fused_need else None, store=store)
             if c["pend_over"] is not None:
                 viol_blk = viol_blk + c["pend_over"]
             ok_carry = {

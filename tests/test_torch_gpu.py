@@ -561,3 +561,119 @@ def test_warp_packed_kernels_bitwise_simple_on_an_empty_scene():
             params)
     rp, f = _warp_vs_simple(params, feat, args)
     assert int(addr.n_occ[0]) == 0 and not rp.any() and not f.any()
+
+
+def _pre_inputs(dim, bf16, dev, seed=57):
+    """A block's top (xs, vs, acc, movb) on a random cloud's slot
+    addressing, the centers of its bf16 frame, and two blocks of storage
+    holding the same garbage, so that an element a pass does not write
+    shows as a difference between kernel and plain version only if one
+    of them wrote it."""
+    params, sg, addr, feat = _slots(dim, 16, {}, dev, seed=seed)
+    rng = np.random.default_rng(seed)
+    shape = (sg.c_rows, dim, sg.lanes)
+    movb = feat[:, 6:7, :] > 0
+    acc = torch.from_numpy(rng.normal(0.0, 3e3, shape).astype(np.float32))
+    acc = torch.where(movb, acc.to(dev), 0.0)
+    xs, vs = feat[:, 0:dim, :], feat[:, 3:3 + dim, :]
+    centers = torch.from_numpy(rng.uniform(-5.0, 5.0, shape).astype(
+        np.float32)).to(dev) + xs.clamp(max=200.0) if bf16 else None
+    blocks = [slot_pass.SlotBlock(sg.c_rows, sg.lanes, dim, bf16, dev)
+              for _ in range(2)]
+    junk = torch.from_numpy(rng.normal(0.0, 9.0, (sg.c_rows, 8, sg.lanes))
+                            .astype(np.float32)).to(dev)
+    for blk in blocks:
+        blk.feat.copy_(junk)
+        blk.acc.copy_(junk[:, :dim])
+        if bf16:
+            blk.feat16.copy_(junk.to(torch.bfloat16))
+        blk.count.fill_(7)
+        blk.risky.fill_(9)
+    return params, addr, (xs, vs, acc, movb), centers, blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["full_x0", "full", "occupied"])
+@pytest.mark.parametrize("leap", [True, False], ids=["leapfrog", "euler"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_first_slot_pre_bitwise_plain_version(dim, leap, mode, bf16):
+    """A block's first slot_pre, over every slot (with and without the
+    copy of the top's x into x0) and over the occupied groups only (the
+    persistent storage's), against its plain version on the same arrays:
+    every element of both storages, x0, acc and the zeroed counts bitwise,
+    one launch counted; the occupied-only pass leaves every element
+    outside the occupied groups as it was."""
+    dev = _card()
+    params, addr, top, centers, blocks = _pre_inputs(dim, bf16, dev)
+    full = mode != "occupied"
+    x0s = [torch.full_like(top[2], -3.0) if mode == "full_x0" else None
+           for _ in blocks]
+    before = dict(slot_pass.LAUNCHES)
+    untouched = blocks[0].feat.clone()
+    tiles = slot_pass.occupied_tiles(addr.gcounts, addr.n_occ)
+    kernel = (lambda *a, **k: slot_pass.slot_pre(*a, **k, tiles=tiles))
+    for blk, x0, pre in zip(blocks, x0s, (kernel, slot_pass.slot_pre_plain)):
+        pre(blk, *top, addr.gcounts, addr.n_occ, 1e-3, leap, leap, True,
+            centers, full=full, x0=x0)
+    torch.cuda.synchronize()
+    assert slot_pass.LAUNCHES["slot_pre"] == before["slot_pre"] + 1
+    a, b = blocks
+    assert _bitwise(a.feat, b.feat) and _bitwise(a.acc, b.acc)
+    if bf16:
+        assert torch.equal(a.feat16.view(torch.int16),
+                           b.feat16.view(torch.int16))
+    assert int(a.count) == int(b.count) == 0 == int(a.risky) == int(b.risky)
+    if mode == "full_x0":
+        assert _bitwise(x0s[0], x0s[1]) and _bitwise(x0s[0], top[0])
+    if not full:
+        visit = slot_pass._visit(addr.gcounts, addr.n_occ, a.feat.shape[2])
+        keep = ~visit.expand_as(a.feat)
+        assert torch.equal(a.feat[keep].view(torch.int32),
+                           untouched[keep].view(torch.int32))
+        assert bool(visit.any()) and bool(keep.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["3d-calm", "2d-dart-repair"])
+def test_persistent_storage_on_card_bitwise_fresh(case, monkeypatch):
+    """The auto-rebuild advance on the card with the storage that
+    outlives the block and with fresh storage every block: the state and
+    the counters bitwise, and occupied-only first passes in the first."""
+    dev = _card()
+    if case == "3d-calm":
+        p = port.SimParams(dim=3, gravity=(0.0, -9.81, 0.0),
+                           kernel_norm="proper", eos="tait",
+                           integrator="leapfrog", boundary_mode="penalty",
+                           dt=4e-4)
+        scene = port.calibrate(port.Scene(
+            params=p, lo=(0.0,) * 3, hi=(300.0,) * 3,
+            blocks=(port.Block(lo=(20.0,) * 3, hi=(110.0, 140.0, 110.0)),),
+            seed=74))
+        kw = {}
+    else:
+        p = port.SimParams()
+        lo = (p.wall_eps + 4,) * 2
+        scene = port.calibrate(port.Scene(
+            params=p, lo=(0.0, 0.0), hi=(400.0, 400.0),
+            blocks=(port.Block(lo=lo, hi=(lo[0] + 60, lo[1] + 100)),
+                    port.Block(lo=(250.0, 250.0), hi=(262.0, 262.0),
+                               velocity=(420.0, 0.0))), seed=97))
+        kw = dict(repair_k=256)
+    outs = []
+    for fresh in (False, True):
+        monkeypatch.setattr(slot_pass, "FRESH_STORAGE", fresh)
+        slot_pass.reset_launches()
+        st = port.init(scene, device=dev)
+        if p.integrator == "leapfrog":
+            st = port.prime(scene, st, "pallas", device=dev)
+        res = port.make_advance(scene, "pallas", steps_per_dispatch=32,
+                                sort_every=4, slot_resident=True,
+                                auto_rebuild=True, device=dev, **kw)(st)
+        torch.cuda.synchronize()
+        outs.append((res, dict(slot_pass.BLOCKS)))
+    (a, blocks), (b, _) = outs
+    assert [int(t) for t in a[1:]] == [int(t) for t in b[1:]]
+    for f in ("x", "v", "acc", "rho", "p"):
+        assert _bitwise(getattr(a[0], f), getattr(b[0], f)), f
+    assert blocks["occupied"] > 0

@@ -112,7 +112,8 @@ def test_repair_matches_reference(case, name, spd, repair_k, cap4, want):
 def test_repair_is_pure_readdressing():
     """apply() moves slots, never values: the state a carry materializes is
     bitwise the same before and after a repair, and the patched addr
-    points every particle at its value."""
+    points every particle at its value.  apply() patches the carry's
+    arrays in place, so the state before is read first."""
     _, _, scene, ost = _pair(_dart_scene(97))
     grid = tnb.GridSpec.for_scene(
         scene, cap=tnb.GridSpec.for_scene(scene).cap,
@@ -138,8 +139,8 @@ def test_repair_is_pure_readdressing():
     act = st.active
     pl = plan(c, st.x, act, act & (st.kind == 0))
     assert bool(pl["can"]) and int(pl["n_risky"]) > 0
-    c2 = apply(c, pl)
     before = port_step._materialize(sp, c, st, st.step)
+    c2 = apply(c, pl)
     after = port_step._materialize(sp, c2, st, st.step)
     _same(before, after)
     assert int(c2["addr"].gcounts.sum()) == int(c["addr"].gcounts.sum())

@@ -322,6 +322,29 @@ def test_visit_covers_every_movable_slot():
     assert bool(visit.any()) and not bool(visit.all())
 
 
+@pytest.mark.parametrize("name", ["3d-leap-penalty", "3d-leap-packed",
+                                  "2d-euler-clamp"])
+def test_occupied_tiles_list_the_visited_groups(name):
+    """The tile list the kernels walk: the occupied (row, group) tiles of
+    rows 1..n_occ in row-major order, their count on the device, and
+    their lanes exactly the slots the plain versions visit."""
+    sp, grid, c, _, _ = _case(name)
+    addr, sg = c["addr"], sp.sg
+    tiles, n_tiles = slot_pass.occupied_tiles(addr.gcounts, addr.n_occ)
+    n = int(n_tiles[0])
+    assert tiles.dtype == n_tiles.dtype == torch.int32
+    assert tiles.shape == (sg.c_rows * sg.n_groups,) and n_tiles.shape == (1,)
+    got = tiles[:n].long()
+    assert bool((got[1:] > got[:-1]).all())
+    mask = torch.zeros(sg.c_rows * sg.n_groups, dtype=torch.bool)
+    mask[got] = True
+    lanes = mask.reshape(sg.c_rows, sg.n_groups).repeat_interleave(
+        slot_pass.LANE, dim=1)[:, None, :]
+    assert torch.equal(lanes, slot_pass._visit(addr.gcounts, addr.n_occ,
+                                               sg.lanes))
+    assert 0 < n < sg.c_rows * sg.n_groups
+
+
 def test_wrappers_reject_arrays_the_kernels_do_not_take():
     sp, grid, c, leap, half2 = _case("3d-leap-penalty")
     addr, sg = c["addr"], sp.sg

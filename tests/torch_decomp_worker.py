@@ -1,6 +1,7 @@
 """One rank of a gloo world for the decomposition tests
 (`test_torch_decomp_world.py`, `test_torch_decomp_run.py`,
-`test_torch_decomp_fast.py`, `test_torch_pencil.py`).
+`test_torch_decomp_fast.py`, `test_torch_pencil.py`,
+`test_torch_slot_storage.py`).
 
     python tests/torch_decomp_worker.py SUITE RANK WORLD STORE OUT
 
@@ -583,6 +584,47 @@ def case_run_fast(case: str) -> dict:
 # --- pencils ------------------------------------------------------------------
 
 
+# suite "storage": auto-rebuild fast-path runs, each with the persistent
+# block storage and with fresh storage (`slot_pass.FRESH_STORAGE`)
+STORAGE_RUNS = {
+    "storage_dart": ("dart", 2, dict(repair_k=64)),
+    "storage_migrate": ("migrate", 3, {}),
+    "storage_jet": ("jet", 1, {}),
+}
+
+
+def case_storage(case: str) -> dict:
+    """One of STORAGE_RUNS twice: this rank's final local state bitwise
+    equal between the two storages, the counters equal, and this rank's
+    blocks by first pass (full, occupied, after a build, after a repair)
+    on the persistent storage (one file a rank)."""
+    from sph_tpu_torch import slot_pass
+
+    name, n, opts = STORAGE_RUNS[case]
+    scene, spec, _, loc = _fast_start(name)
+    runs = []
+    for fresh in (False, True):
+        slot_pass.FRESH_STORAGE = fresh
+        slot_pass.reset_launches()
+        try:
+            out, counts = _dispatches(decomp.make_spatial_advance(
+                scene, spec, "pallas", 16, sort_every=4, slot_resident=True,
+                auto_rebuild=True, **opts), loc, n)
+        finally:
+            slot_pass.FRESH_STORAGE = False
+        runs.append((out, counts, dict(slot_pass.BLOCKS)))
+    (a, c_a, blocks), (b, c_b, _) = runs
+    same = np.array_equal(c_a, c_b) and all(
+        torch.equal(getattr(a, k).contiguous().view(torch.int32),
+                    getattr(b, k).contiguous().view(torch.int32))
+        for k in ("x", "v", "acc", "rho", "p")) and all(
+        torch.equal(getattr(a, k), getattr(b, k))
+        for k in ("kind", "emit_step", "step"))
+    return {"bitwise": np.array(same), "counts": c_a,
+            "blocks": np.array([blocks[k] for k in (
+                "full", "occupied", "after_build", "after_repair")])}
+
+
 def _pencil_start(case):
     make, method, _, kw = PENCIL[case]
     scene = make(port)
@@ -673,13 +715,14 @@ SUITES = {
         "demote": case_fast_demote,
         "audited": case_fast_audited,
     },
+    "storage": {c: case_storage for c in STORAGE_RUNS},
     "pencil": {
         **{c: case_pencil for c in PENCIL},
         "pencil_overflow": case_pencil_overflow,
         "pencil_run": case_pencil_run,
     },
 }
-PER_RANK = {"overflow", "one_rank", "pencil_overflow"}
+PER_RANK = {"overflow", "one_rank", "pencil_overflow", *STORAGE_RUNS}
 
 
 def spawn(suite: str, world: int, out: Path) -> list:
