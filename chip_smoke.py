@@ -320,6 +320,21 @@ Phases, each printed as one JSON line:
               every first pass over every slot): final states bitwise,
               counters equal, occupied-only first passes in the first
               run and none in the second
+ 52. ladder  (after phase 44) the one-line benchmark, `python -m
+             sph_tpu_torch.bench`, in three subprocesses side by side: the
+             ladder at --steps BENCH_STEPS (exit 0; the flagship's partial
+             compact line first and its measurement again last; the 20
+             rows in the ladder's order, none skipped, slot overflow 0,
+             n the scene's active count; the ladder file), --config
+             dam2d_10k (its pallas row) and --all (a line a row); then
+             the flagship row and emitters3d@settled's through
+             `bench.measure` in this process, their launches read (the
+             staged K1/K2 and slot_pre/slot_post on the flagship, K1/K2
+             once a resident step, the prime's and 4 a healed block;
+             K3/K4 or K1/K2 as `packed_fits` says at the checkpoint);
+             dam3d_100k resident4auto through `bench.measure` and
+             `bench_step.bench_one` in turns, ms/step of each; and
+             `bench.naive_pair_rate` three times beside NAIVE_PAIR_RATE
   Phase 18 also profiles pinned packed rows at emitters3d@settled.
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
@@ -2755,6 +2770,159 @@ def phase_bench(dev, smi: str) -> dict:
             "settled_layout": layout}
 
 
+def json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.strip().splitlines()]
+
+
+def same_measurement(early: dict, last: dict) -> bool:
+    """The flagship's early compact line and the last line report one
+    measurement: every key but the ladder's counts and `partial`."""
+    keep = set(early) - {"partial", "ladder_entries", "ladder_skipped"}
+    return keep == set(last) - {"ladder_entries", "ladder_skipped"} and all(
+        early[k] == last[k] for k in keep)
+
+
+def phase_ladder(dev, smi: str) -> dict:
+    """Phase 52, the one-line benchmark, `python -m sph_tpu_torch.bench`,
+    in three subprocesses side by side (after phase 46 made the @settled
+    checkpoints): the ladder at `--steps BENCH_STEPS`, `--config
+    dam2d_10k` and the ladder with `--all`.  Each exits 0.  The ladder's
+    first stdout line is the flagship's partial compact line (splash3d_1m,
+    resident4auto, n=1,080,000) and its last the same measurement without
+    `partial`; its document, the line before, holds the 20 rows in the
+    ladder's order, none skipped, every slot_overflow 0, each n the
+    scene's active count, and is the file it wrote; `--config` runs
+    dam2d_10k's pallas row; `--all` prints the partial line and a line for
+    each of the 20 rows.  Then in this process, through `bench.measure`,
+    the flagship row (the staged K1/K2 and slot_pre/slot_post launched,
+    no yardstick, no K3/K5) and emitters3d@settled's (packed rows, K3/K4,
+    where `packed_fits` says so at its checkpoint, else K1/K2; K1/K2 only
+    in heals on packed rows); dam3d_100k resident4auto through
+    `bench.measure` and `bench_step.bench_one` in turns (ms/step only);
+    and `naive_pair_rate` three times beside `bench.NAIVE_PAIR_RATE`."""
+    from sph_tpu_torch import bench, load_checkpoint, packed_fits
+    from sph_tpu_torch import make_settled_state as mss
+
+    t0 = time.perf_counter()
+    steps = ["--steps", str(BENCH_STEPS)]
+    argvs = [steps, ["--config", "dam2d_10k"], [*steps, "--all"]]
+    bench.LADDER_FILE.unlink(missing_ok=True)
+    done = side_by_side([(cli_cmd(a, "bench"), None) for a in argvs])
+    for argv, (rc, out, err, secs) in zip(argvs, done):
+        emit({"phase": "ladder", "argv": argv, "rc": rc, "seconds": secs,
+              "seconds_note": "the three commands side by side",
+              "nvidia_smi": smi, "stderr_tail": err[-600:]})
+        check(rc == 0, f"python -m sph_tpu_torch.bench {' '.join(argv)} "
+                       f"exits 0")
+    (_, out, _, _), (_, out_c, _, _), (_, out_a, _, _) = done
+    lines = json_lines(out)
+    early, doc, last = lines[0], lines[-2], lines[-1]
+    emit({"phase": "ladder", "early": early, "last": last})
+    check(len(lines) == 3 and early.get("partial") is True
+          and early["metric"] == "particle-steps/sec (splash3d_1m, "
+                                 "resident4auto, n=1080000)",
+          "the first line is the flagship's partial compact line")
+    check("partial" not in last and same_measurement(early, last)
+          and last["ladder_entries"] == 20 and last["ladder_skipped"] == 0,
+          "the last line is the flagship's measurement, not partial")
+    rows = bench.ladder_rows(BENCH_STEPS)
+    want = bench_expected_n(dev, min(BENCH_STEPS, 100))
+    check(doc["skipped"] == [] and len(doc["ladder"]) == len(rows) == 20
+          and [r["config"] for r in doc["ladder"]] == [r[0] for r in rows],
+          "the ladder document holds the 20 rows in order, none skipped")
+    for r in doc["ladder"]:
+        emit({"phase": "ladder", "row": f"{r['config']}/{r['method']}",
+              **{k: v for k, v in r.items() if k not in ("config",
+                                                         "method")},
+              "nvidia_smi": smi})
+        check(r["slot_overflow"] == 0,
+              f"{r['config']}/{r['method']}: no slot overflow")
+        check(r["n"] in want[r["config"]],
+              f"{r['config']}/{r['method']}: n={r['n']} is the scene's "
+              f"active count")
+    check(json.loads(bench.LADDER_FILE.read_text()) == doc,
+          "the ladder file holds the ladder document")
+    cfg = json_lines(out_c)
+    check(len(cfg) == 2 and [(r["config"], r["method"], r["n"])
+                             for r in cfg[0]["ladder"]]
+          == [("dam2d_10k", "pallas", 10010)]
+          and cfg[0]["ladder"][0]["slot_overflow"] == 0,
+          "--config dam2d_10k runs its pallas row")
+    per_row = json_lines(out_a)
+    check(len(per_row) == 21 and per_row[0].get("partial") is True
+          and all(r["slot_overflow"] == 0 for r in per_row[1:]),
+          "--all prints the early line and a line a row, no overflow")
+
+    name, method, n_steps, k, res = rows[0]
+    flag, _, _ = in_process(lambda: bench.measure(
+        name, method, n_steps, sort_every=k, slot_resident=res, device=dev))
+    launches = read_counts(f"ladder {name}/{method}")
+    emit({"phase": "ladder", "in_process": f"{name}/{method}", **flag,
+          "launches": launches})
+    check(flag["n"] == 1_080_000 and flag["slot_overflow"] == 0,
+          "the flagship row at full size, no overflow")
+    check(launches["slot_density"] == launches["slot_force"] > 0
+          and launches["slot_pre"] > 0 and launches["slot_post"] > 0,
+          "the flagship row launched the staged K1/K2 and "
+          "slot_pre/slot_post")
+    # the prime, a launch a resident step, 4 a healed block
+    check(launches["slot_density"]
+          == 1 + launches["slot_post"] + 4 * flag["healed_blocks"],
+          "K1/K2 once a resident step, the prime's and the heals'")
+    check(launches["packed_density"] == launches["stage_transpose"] == 0,
+          "no K3 or K5 on the flagship row")
+
+    e_name = "emitters3d@settled"
+    e_row = next(r for r in rows if r[0] == e_name)
+    ckpt, scene_e = load_checkpoint(mss.settled_path("emitters3d"),
+                                    device=dev)
+    fits = packed_fits(scene_e, ckpt, e_row[3])
+    e_res, _, _ = in_process(lambda: bench.measure(
+        *e_row[:3], sort_every=e_row[3], slot_resident=e_row[4],
+        device=dev))
+    e_launches = read_counts(f"ladder {e_name}")
+    layout = "packed rows (K3/K4)" if fits else "slot layout (K1/K2)"
+    emit({"phase": "ladder", "in_process": e_name, **e_res,
+          "checkpoint_particles": int(ckpt.n_active()),
+          "checkpoint_step": int(ckpt.step), "packed_fits": fits,
+          "layout": layout, "launches": e_launches})
+    # no prime from a checkpoint past step 0; a heal re-runs on slots
+    heals = 4 * e_res["healed_blocks"]
+    check(e_res["method"] == "resident4auto" + ("+packed" if fits else "")
+          and (e_launches["packed_density"] > 0
+               and e_launches["slot_density"] == heals if fits
+               else e_launches["packed_density"] == 0
+               and e_launches["slot_density"] > heals),
+          f"{e_name} runs on the {layout}, as packed_fits says")
+
+    # a host-bound row whose ladder and `cli bench` times parted: the two
+    # harnesses on the same row in this process, in turns
+    from sph_tpu_torch import bench_step
+
+    t_name, t_method = "dam3d_100k", "resident4auto"
+    turns = []
+    for who in ("bench_step", "bench", "bench", "bench_step", "bench_step",
+                "bench"):
+        if who == "bench":
+            ms = bench.measure(t_name, t_method, BENCH_STEPS, 4, True,
+                               device=dev)["ms_per_step"]
+        else:
+            ms = bench_step.bench_one(t_name, t_method, BENCH_STEPS,
+                                      device=dev)[1] * 1e3
+        turns.append({"harness": who, "ms_per_step": ms})
+    emit({"phase": "ladder", "turns": f"{t_name}/{t_method}",
+          "steps": BENCH_STEPS, "ms_per_step": turns, "nvidia_smi": smi})
+
+    rates = [bench.naive_pair_rate(dev) for _ in range(3)]
+    emit({"phase": "ladder", "naive_pair_rate": rates,
+          "median_pair_rate": statistics.median(r["pair_rate"]
+                                                for r in rates),
+          "NAIVE_PAIR_RATE": bench.NAIVE_PAIR_RATE, "nvidia_smi": smi})
+    emit({"phase": "ladder", "seconds": time.perf_counter() - t0})
+    return {"launches": launches, "settled_launches": e_launches,
+            "settled_layout": layout}
+
+
 # ---------------------------------------------------------------------------
 # The whole arc: the settled maker, the soaks, the cap-evidence tools
 # ---------------------------------------------------------------------------
@@ -4513,12 +4681,17 @@ def main() -> int:
                 phase_soak_emitters(dev, smi).items()}}
     tools = phase_spill_sweep(dev, smi)
     bench = phase_bench(dev, smi)
+    ladder = phase_ladder(dev, smi)
     soak_counts = {
         **{k: r["launches"] for k, r in soaks.items()},
         "measure_spill": tools["spill"]["launches"],
         "bench_sweep": tools["sweep_launches"],
         f"bench emitters3d@settled ({bench['settled_layout']})": {
             k: bench["settled_launches"][k] for k in (
+                "slot_density", "slot_force", "slot_pre", "slot_post",
+                "packed_density", "packed_force")},
+        f"ladder emitters3d@settled ({ladder['settled_layout']})": {
+            k: ladder["settled_launches"][k] for k in (
                 "slot_density", "slot_force", "slot_pre", "slot_post",
                 "packed_density", "packed_force")}}
 
@@ -4559,6 +4732,7 @@ def main() -> int:
                 for p in ("dam3d_100k", "splash3d_1m")},
             **resident(name),
             "bench": {"/".join(BENCH_FLAGSHIP): bench["launches"][name]},
+            "ladder": {"/".join(BENCH_FLAGSHIP): ladder["launches"][name]},
             "at_cap32": {"preset": "dam3d_100k", "lattice": "cap 32",
                          "launches": tools["sweep_launches"][name],
                          **tools["at_cap32"][name]},
@@ -4649,6 +4823,7 @@ def main() -> int:
             **resident(name),
             "decomposed": {f"decomp_fast {p}": fast_runs[p]["launches"][name]
                            for p in ("dam3d_100k", "splash3d_1m")},
+            "ladder": {"/".join(BENCH_FLAGSHIP): ladder["launches"][name]},
             **soak_of(name),
         })
         if name == "slot_pre":
