@@ -335,6 +335,49 @@ Phases, each printed as one JSON line:
              dam3d_100k resident4auto through `bench.measure` and
              `bench_step.bench_one` in turns, ms/step of each; and
              `bench.naive_pair_rate` three times beside NAIVE_PAIR_RATE
+ 53. fuzz     (after phase 52) the reference's seeded fuzz on the card:
+             every seed of tests/test_torch_fuzz*.py (tests/
+             torch_fuzz_scenes.py: the reference's 10 and the port's own
+             4 `extend`ed ones, 32-966 particles, 2-D and 3-D, both EOS,
+             integrators, kernel norms and wall modes, the pressure floor,
+             static boundary particles, an emitter, up to two force
+             fields), each on the card and on the CPU from the same init:
+             one evaluation of rho and f (K1/K2 on the scene's lattice and
+             its cap-8 lattice, K3/K4 on packed rows) against the CPU's
+             plain versions at phase 3's tolerances, K2 on K1's rho and p
+             as phase 3 holds it; S1/S2 on the resident arrays bitwise
+             their plain versions (`slot_pass_steps`, force fields live);
+             then FUZZ_STEPS-step trajectories (per-step pallas,
+             resident4auto and the cap-8 policy in dispatches of
+             FUZZ_DISPATCH, packed rows where `packed_fits` says so, the
+             live spawn bursts on the spawn seeds): the active set exact,
+             boundary particles bitwise unmoved, x within 1e-3 h, the
+             policies' counters and spawned counts equal after every
+             dispatch (a counter that parts is printed with its seed and
+             dispatch); every kernel's launches by DIM and branch, read
+             off the wrappers' arguments (`branch_launches`), which must
+             cover FUZZ_BRANCHES
+ 54. gpu_tests  (beside phase 53) the `gpu` cases of
+             tests/test_torch_gpu.py and tests/test_torch_slot_pass.py in
+             a pytest subprocess: every collected case passes, none skips
+ 55. cli_paths  the command line's paths no other phase drives, each with
+             --device cuda and its --device cpu twin side by side, their
+             metrics.jsonl equal frame by frame in step, n_active, heals,
+             repairs, mode and cap_dropped 0, scalars within 1e-3:
+             fountain2d --method auto (16,384 slots; the card's run in
+             this process, its packed verdict against packed_fits, its
+             launches by branch), fountain2d --interact on the resident
+             path (two spawns, a force field, a malformed spawn ignored:
+             n_active over the plain run grows by exactly the spawned
+             counts), a fuzz scene's .json with --checkpoint-every 1 and
+             --resume from its second checkpoint (the resumed lines equal
+             the uninterrupted run's, bit for bit), tutorial2d
+             --repair-k 0 --strict-audit, --render --mode speed, rho and
+             depth (PNGs that decode at 320x240; the card's render of a
+             state byte for byte the CPU's), and under torchrun
+             dam3d_100k --shards 2 --shard-axis 2 and --shards 2x2
+             --shard-axis 2 --shard-axis2 0 on cuda:0 against the
+             single-device card run
   Phase 18 also profiles pinned packed rows at emitters3d@settled.
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
@@ -362,6 +405,7 @@ import struct
 import subprocess
 import sys
 import time
+import types
 import zlib
 from pathlib import Path
 
@@ -1904,6 +1948,104 @@ def slot_pass_bound(name: str, addr, movb, d: int, params) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def first_difference(arrays: dict, counts) -> dict:
+    """Where two runs' arrays (name -> (kernel's, plain's), [c_rows, k,
+    lanes]) first differ: the array, slot, both values and the number of
+    differing elements; and the counts of both."""
+    out = {"counts": list(counts)}
+    for name, (a, b) in arrays.items():
+        diff = a.view(torch.int32) != b.view(torch.int32)
+        if bool(diff.any()):
+            row, comp, lane = (int(t) for t in torch.nonzero(diff)[0])
+            out[name] = {"n": int(diff.sum()), "row": row, "comp": comp,
+                         "lane": lane, "kernel": float(a[row, comp, lane]),
+                         "plain": float(b[row, comp, lane])}
+    return out
+
+
+def slot_pass_steps(scene, state, c, grid, sg, ci, faces, dev,
+                    where: str):
+    """The resident block's passes by the kernels and by their plain
+    versions from the carry `c` (the residency of `state` on `grid`, `sg`;
+    a slab's `ci` offset and `faces`, or None) with its movable slots moved
+    ~0.3 cell off their build positions with a flow's velocities and
+    accelerations, so the audit fires and membership decides: each of
+    SLOT_PASS_STEPS steps (the first the block's) run both ways, K1/K2
+    between, every element of the two blocks' arrays bitwise and the
+    violation counts equal at every step, and the rebuild predicate's
+    count (the block's last slot_post) equal.  The body's force fields are
+    live from `state.step`."""
+    from sph_tpu_torch import pallas_step as ps, slot_pass
+    from sph_tpu_torch import step as step_mod
+
+    params = scene.params
+    d, dt = params.dim, params.dt
+    leap = params.integrator == "leapfrog"
+    addr, movb = c["addr"], c["movb"]
+    skin = grid.cell - params.h
+    half2 = (0.5 * skin) ** 2
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def noise(scale):
+        return torch.randn(c["xs"].shape, generator=gen, device=dev) * scale
+
+    xs = torch.where(movb, c["xs"] + noise(0.3 * grid.cell), c["xs"])
+    vs = torch.where(movb, c["vs"] + noise(0.1 * params.sound_speed),
+                     c["vs"])
+    acc = torch.where(movb, noise(3e3), 0.0)
+    step0 = state.step
+    sp = step_mod._SlotPhysics(scene, grid, sg, dev)
+    budget = 0.5 * skin
+    plan = slot_pass.PostPlan(sp, leap, half2, True, ci, faces, budget,
+                              RESIDENT["sort_every"])
+    blocks = [slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, False, dev)
+              for _ in range(2)]
+    # the kernels walk the addressing's tile list, made once as the
+    # resident block makes it
+    tiles = slot_pass.occupied_tiles(addr.gcounts, addr.n_occ)
+    pre_k = functools.partial(slot_pass.slot_pre, tiles=tiles)
+    post_k = functools.partial(slot_pass.slot_post, tiles=tiles)
+    ways = ((pre_k, post_k),
+            (slot_pass.slot_pre_plain, slot_pass.slot_post_plain))
+    counts, err = [], {"slot_pre": 0.0, "slot_post": 0.0}
+    for i in range(SLOT_PASS_STEPS):
+        for blk, (pre, post) in zip(blocks, ways):
+            src = (xs, vs, acc) if i == 0 else (blk.xs, blk.vs, blk.acc)
+            pre(blk, *src, movb, addr.gcounts, addr.n_occ, dt, leap, leap,
+                i == 0)
+        torch.cuda.synchronize()
+        a, b = blocks
+        err["slot_pre"] = max(err["slot_pre"],
+                              float((a.feat - b.feat).abs().max()))
+        check(bitwise(a.feat, b.feat), f"slot_pre bitwise plain at {where}, "
+                                       f"step {i}")
+        last = i == SLOT_PASS_STEPS - 1
+        for blk, (pre, post) in zip(blocks, ways):
+            rp = ps._call_density(blk.feat, addr, sg, params, c["jb"])
+            f = ps._call_force(blk.feat, rp, addr, sg, params, c["jb"])
+            post(blk, rp, f, c["x0s"], movb, addr, plan, step0, i, last)
+        torch.cuda.synchronize()
+        err["slot_post"] = max(err["slot_post"],
+                               float((a.feat - b.feat).abs().max()),
+                               float((a.acc - b.acc).abs().max()))
+        counts.append((int(a.count), int(b.count)))
+        same = (bitwise(a.feat, b.feat) and bitwise(a.acc, b.acc)
+                and counts[-1][0] == counts[-1][1])
+        if not same:
+            emit({"phase": "slot_pass", "where": where, "step": i,
+                  "parted": first_difference(
+                      {"feat": (a.feat, b.feat), "acc": (a.acc, b.acc)},
+                      counts[-1])})
+        check(same, f"slot_post bitwise plain at {where}, step {i}")
+    risky = (int(a.risky), int(b.risky))
+    check(risky[0] == risky[1],
+          f"slot_post's rebuild predicate equals plain at {where}")
+    return types.SimpleNamespace(
+        addr=addr, movb=movb, plan=plan, step0=step0, xs=xs, vs=vs,
+        acc=acc, blocks=blocks, pre_k=pre_k, post_k=post_k, counts=counts,
+        err=err, risky=risky)
+
+
 def phase_slot_pass(name: str, dev, grid=None, lattice: str = "sort_every=4",
                     slab=None) -> dict:
     """slot_pre and slot_post against their plain versions on the slot
@@ -1943,64 +2085,14 @@ def phase_slot_pass(name: str, dev, grid=None, lattice: str = "sort_every=4",
         mov = torch.cat([act] + [torch.zeros_like(g[2]) for g in ghosts])
         c = step_mod._scatter_residency(cx, cv, c_act, mov, grid, sg, True,
                                         ci)
-    params = scene.params
-    d, dt = params.dim, params.dt
-    leap = params.integrator == "leapfrog"
-    addr, movb = c["addr"], c["movb"]
-    skin = grid.cell - params.h
-    half2 = (0.5 * skin) ** 2
-    gen = torch.Generator(device=dev).manual_seed(12)
-
-    def noise(scale):
-        return torch.randn(c["xs"].shape, generator=gen, device=dev) * scale
-
-    xs = torch.where(movb, c["xs"] + noise(0.3 * grid.cell), c["xs"])
-    vs = torch.where(movb, c["vs"] + noise(0.1 * params.sound_speed),
-                     c["vs"])
-    acc = torch.where(movb, noise(3e3), 0.0)
-    step0 = state.step
-    sp = step_mod._SlotPhysics(scene, grid, sg, dev)
-    budget = 0.5 * skin
-    plan = slot_pass.PostPlan(sp, leap, half2, True, ci, faces, budget,
-                              RESIDENT["sort_every"])
-    blocks = [slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, False, dev)
-              for _ in range(2)]
-    # the kernels walk the addressing's tile list, made once as the
-    # resident block makes it
-    tiles = slot_pass.occupied_tiles(addr.gcounts, addr.n_occ)
-    pre_k = functools.partial(slot_pass.slot_pre, tiles=tiles)
-    post_k = functools.partial(slot_pass.slot_post, tiles=tiles)
-    ways = ((pre_k, post_k),
-            (slot_pass.slot_pre_plain, slot_pass.slot_post_plain))
-    counts, err = [], {"slot_pre": 0.0, "slot_post": 0.0}
     where = f"{name}, lattice {lattice}"
-    for i in range(SLOT_PASS_STEPS):
-        for blk, (pre, post) in zip(blocks, ways):
-            src = (xs, vs, acc) if i == 0 else (blk.xs, blk.vs, blk.acc)
-            pre(blk, *src, movb, addr.gcounts, addr.n_occ, dt, leap, leap,
-                i == 0)
-        torch.cuda.synchronize()
-        a, b = blocks
-        err["slot_pre"] = max(err["slot_pre"],
-                              float((a.feat - b.feat).abs().max()))
-        check(bitwise(a.feat, b.feat), f"slot_pre bitwise plain at {where}, "
-                                       f"step {i}")
-        last = i == SLOT_PASS_STEPS - 1
-        for blk, (pre, post) in zip(blocks, ways):
-            rp = ps._call_density(blk.feat, addr, sg, params, c["jb"])
-            f = ps._call_force(blk.feat, rp, addr, sg, params, c["jb"])
-            post(blk, rp, f, c["x0s"], movb, addr, plan, step0, i, last)
-        torch.cuda.synchronize()
-        err["slot_post"] = max(err["slot_post"],
-                               float((a.feat - b.feat).abs().max()),
-                               float((a.acc - b.acc).abs().max()))
-        counts.append((int(a.count), int(b.count)))
-        check(bitwise(a.feat, b.feat) and bitwise(a.acc, b.acc)
-              and counts[-1][0] == counts[-1][1],
-              f"slot_post bitwise plain at {where}, step {i}")
-    risky = (int(a.risky), int(b.risky))
-    check(risky[0] == risky[1],
-          f"slot_post's rebuild predicate equals plain at {where}")
+    ns = slot_pass_steps(scene, state, c, grid, sg, ci, faces, dev, where)
+    params, d, dt = scene.params, scene.params.dim, scene.params.dt
+    addr, movb, plan, step0 = ns.addr, ns.movb, ns.plan, ns.step0
+    xs, vs, acc, blocks = ns.xs, ns.vs, ns.acc, ns.blocks
+    pre_k, post_k, counts, err, risky = (ns.pre_k, ns.post_k, ns.counts,
+                                         ns.err, ns.risky)
+    a, b = blocks
     check(counts[-1][0] > 0 and risky[0] > 0,
           f"the audit and the rebuild predicate fired at {where}")
     # a block's first slot_pre: over the occupied groups of a storage
@@ -4416,6 +4508,640 @@ def kernels_on_lattice(dev, scene, s0, grid, ci, local, parts,
     return res
 
 
+# ---------------------------------------------------------------------------
+# The robustness net: seeded random scenes, the gpu test cases, the CLI's
+# paths that no other phase drives
+# ---------------------------------------------------------------------------
+
+# steps of each fuzz trajectory: an `extend`ed scene's second force field
+# stops inside them (tests/torch_fuzz_scenes.py EXTEND_STEPS)
+FUZZ_STEPS = 40
+# a resident trajectory runs as dispatches of this many steps, so that a
+# counter that parts is placed at its dispatch
+FUZZ_DISPATCH = 8
+# x of the card's run against the CPU's, in units of h
+FUZZ_X_H = 1e-3
+
+
+def fuzz_scenes():
+    """tests/torch_fuzz_scenes.py, which imports numpy and the port only."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_fuzz_scenes
+
+    return torch_fuzz_scenes
+
+
+def _eos_branch(a) -> str:
+    p = a["params"]
+    floor = "+floor" if p.pressure_floor else ""
+    return f"{p.dim}d/{p.eos}{floor}/{p.kernel_norm}"
+
+
+def _pre_branch(a) -> str:
+    return f"{a['blk'].d}d/{'leapfrog' if a['kick'] else 'euler'}"
+
+
+def _post_branch(a) -> str:
+    plan = a["plan"]
+    packed = "/packed" if plan.body.sg.packed else ""
+    return (f"{a['blk'].d}d/{'leapfrog' if plan.leap else 'euler'}/"
+            f"{'clamp' if plan.clamp else 'penalty'}/"
+            f"{len(plan.body.fields)} fields{packed}")
+
+
+@contextlib.contextmanager
+def branch_launches(tally):
+    """While inside, every launch of K1-K4, S1 and S2 also adds one to
+    `tally` under "<kernel> <branch>", the branch read off the wrapper's
+    arguments: DIM, EOS (with the pressure floor) and kernel norm for
+    K1-K4; DIM and integrator for S1; DIM, integrator, wall mode, the
+    number of force fields and the layout for S2.  A call counts only
+    when its wrapper counted a launch (`LAUNCHES`): a CPU call runs the
+    plain version."""
+    import inspect
+
+    from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
+    from sph_tpu_torch import slot_pass
+
+    spied = {(sk, "slot_density"): _eos_branch, (sk, "slot_force"): _eos_branch,
+             (pk, "packed_density"): _eos_branch,
+             (pk, "packed_force"): _eos_branch,
+             (slot_pass, "slot_pre"): _pre_branch,
+             (slot_pass, "slot_post"): _post_branch}
+    real = {}
+    for (mod, name), branch in spied.items():
+        fn = real[mod, name] = getattr(mod, name)
+
+        def spy(*args, _fn=fn, _sig=inspect.signature(fn), _mod=mod,
+                _name=name, _branch=branch, **kw):
+            before = _mod.LAUNCHES[_name]
+            out = _fn(*args, **kw)
+            if _mod.LAUNCHES[_name] > before:
+                bound = _sig.bind(*args, **kw)
+                bound.apply_defaults()
+                tally[f"{_name} {_branch(bound.arguments)}"] += 1
+            return out
+
+        setattr(mod, name, spy)
+    try:
+        yield tally
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def kernel_rho_f(state, params, grid, packed: bool, rp=None) -> tuple:
+    """(rho, f, rp) of `state` on its device through K1 and K2 (K3 and K4
+    on packed rows), as `pallas_rho_p_f` makes them; K2 (K4) reads `rp`
+    when given, K1's (K3's) own otherwise."""
+    from sph_tpu_torch import pallas_step as ps
+
+    sg, addr, feat = slot_inputs(None, state, packed, grid)
+    jb = ps._jblocks(addr, sg) if packed else None
+    rp_own = ps._call_density(feat, addr, sg, params, jb)
+    rp = rp_own if rp is None else rp.to(feat.device)
+    f = ps._call_force(feat, rp, addr, sg, params, jb)
+    rho, ok = ps._gather_rho(rp_own, addr, sg, params)
+    return rho, ps._gather_f(f, addr, sg, params.dim, ok), rp_own
+
+
+def fuzz_eval(seed: int, scene, dev) -> dict:
+    """One evaluation of rho and f from the seed's init: the card's
+    kernels against the CPU's plain versions on the same positions, at
+    phase 3's tolerances and as phase 3 holds them (K2's plain version
+    reads the kernel's rho and p) — K1/K2 on the slot layout of the
+    scene's lattice and of its cap-8 lattice (where one fits), K3/K4 on
+    packed rows; then S1/S2 on the resident arrays (`slot_pass_steps`,
+    force fields live) bitwise their plain versions on the card."""
+    from sph_tpu_torch import init, neighbors, pallas_step as ps, prime
+    from sph_tpu_torch import step as step_mod
+
+    params = scene.params
+    s_c, s_h = init(scene, device=dev), init(scene, device="cpu")
+    act = s_h.active
+    grids = {"per step": (neighbors.GridSpec.for_scene(scene), False),
+             "packed": (neighbors.GridSpec.for_scene(scene), True)}
+    skin8 = step_mod.cap8_skin(scene, s_h, RESIDENT["sort_every"])
+    if skin8 is not None:
+        grids["cap 8"] = (neighbors.GridSpec.for_scene(scene, cap=8,
+                                                       skin=skin8), False)
+    errs = {"particles": int(act.sum())}
+    for lattice, (grid, packed) in grids.items():
+        where = f"fuzz seed {seed}, {lattice}"
+        rho_c, f_c, rp_c = kernel_rho_f(s_c, params, grid, packed)
+        rho_h, f_h, _ = kernel_rho_f(s_h, params, grid, packed, rp=rp_c)
+        rho_c, f_c = rho_c.cpu()[act], f_c.cpu()[act]
+        rho_h, f_h = rho_h[act], f_h[act]
+        f_rel = float((f_c - f_h).abs().max() / f_h.abs().max().clamp(
+            min=1e-9))
+        rho_err = float((rho_c - rho_h).abs().max())
+        errs[lattice] = {"cap": grid.cap, "rho_max_abs": rho_err,
+                         "f_max_rel": f_rel}
+        check(bool(torch.allclose(rho_c, rho_h, rtol=RHO_RTOL,
+                                  atol=RHO_ATOL)),
+              f"card's rho vs the CPU's at {where}: {rho_err}")
+        check(f_rel < F_REL, f"card's f vs the CPU's at {where}: {f_rel}")
+    leap = params.integrator == "leapfrog"
+    state = prime(scene, s_c, "pallas", device=dev) if leap else s_c
+    grid = reuse_grid(scene, RESIDENT["sort_every"])
+    sg = ps.slot_grid(grid)
+    c = step_mod._residency(state, grid, sg, params.dim, params.dt, leap,
+                            True)
+    ns = slot_pass_steps(scene, state, c, grid, sg, None, None, dev,
+                         f"fuzz seed {seed}, resident arrays")
+    errs["slot_pass"] = {"violations_kernel_plain": ns.counts,
+                         "rebuild_risky_kernel_plain": ns.risky}
+    return errs
+
+
+def _parted(seed: int, run: str, k: int, card, cpu) -> None:
+    """Print where the card's and the CPU's runs of a seed first part."""
+    emit({"phase": "fuzz", "seed": seed, "run": run, "parted_at_dispatch": k,
+          "card": card, "cpu": cpu})
+
+
+def fuzz_hold(seed: int, run: str, scene, a, b, x0) -> float:
+    """The card's state `a` against the CPU's `b`: the active set exact,
+    boundary particles bitwise at `x0` (their init) in both, x within
+    FUZZ_X_H of h; → max |dx|."""
+    where = f"fuzz seed {seed}, {run}"
+    act = b.active
+    check(bool(torch.equal(a.active.cpu(), act)),
+          f"the same active particles at {where}")
+    xa = a.x.cpu()
+    check(bool(torch.isfinite(xa[act]).all()), f"finite x at {where}")
+    wall = (b.kind == 1)
+    check(bool(torch.equal(xa[wall], x0[wall])
+               and torch.equal(b.x[wall], x0[wall])),
+          f"boundary particles unmoved at {where}")
+    dx = float((xa[act] - b.x[act]).abs().max()) if bool(act.any()) else 0.0
+    check(dx < FUZZ_X_H * scene.params.h, f"x within 1e-3 h at {where}")
+    return dx
+
+
+def fuzz_runs(fz, seed: int, dev) -> dict:
+    """The seed's trajectories on the card and on the CPU from the same
+    init, FUZZ_STEPS steps each: per-step pallas, resident4auto and the
+    cap-8 policy (`make_audited_advance`, dispatches of FUZZ_DISPATCH),
+    packed rows per step where `packed_fits` says so, and on the spawn
+    seeds the live spawn bursts into the resident auto advance.  The
+    policies' counters (healed, repaired, rebuilds, mode; viol, spawned
+    counts) must be equal after every dispatch."""
+    from sph_tpu_torch import init, make_advance, make_audited_advance
+    from sph_tpu_torch import neighbors, packed_fits, prime, spawn
+
+    scene = fz.scene_for(seed)
+
+    def start(device, sc=scene):
+        st = init(sc, device=device)
+        if sc.params.integrator == "leapfrog":
+            st = prime(sc, st, "pallas", device=device)
+        return st
+
+    x0 = init(scene, device="cpu").x
+    spd, n_disp = FUZZ_DISPATCH, FUZZ_STEPS // FUZZ_DISPATCH
+    plans = {
+        "pallas": lambda d: make_advance(scene, "pallas", FUZZ_STEPS,
+                                         device=d),
+        "resident4auto": lambda d: make_audited_advance(
+            scene, "pallas", spd, device=d, **RESIDENT),
+    }
+    if neighbors.GridSpec.for_scene(scene).cap > 8:
+        plans["cap8"] = lambda d: make_audited_advance(
+            scene, "pallas", spd, device=d, **CAP8)
+    fits = packed_fits(scene, init(scene, device="cpu"),
+                       RESIDENT["sort_every"])
+    if fits:
+        plans["packed"] = lambda d: make_advance(
+            scene, "pallas", FUZZ_STEPS, packed_rows=True, device=d)
+    out = {"packed_fits": fits}
+    for run, make in plans.items():
+        adv_c, adv_h = make(dev), make("cpu")
+        a, b = start(dev), start("cpu")
+        audited = hasattr(adv_c, "mode")
+        for k in range(n_disp if audited else 1):
+            a, b = adv_c(a), adv_h(b)
+            if audited:
+                got = [adv_c.healed, adv_c.repaired, adv_c.rebuilds,
+                       adv_c.mode]
+                want = [adv_h.healed, adv_h.repaired, adv_h.rebuilds,
+                        adv_h.mode]
+                if got != want:
+                    _parted(seed, run, k, got, want)
+                check(got == want, f"the policy's counters of the card "
+                                   f"equal the CPU's at fuzz seed {seed}, "
+                                   f"{run}")
+        out[run] = {"max_abs_dx": fuzz_hold(seed, run, scene, a, b, x0),
+                    "n_active": int(b.n_active()), "step": int(b.step)}
+        if audited:
+            out[run].update(healed=adv_h.healed, repaired=adv_h.repaired,
+                            rebuilds=adv_h.rebuilds, mode=adv_h.mode)
+    if seed in fz.SPAWN_SEEDS + fz.PORT_SEEDS:
+        sc, bursts = fz.spawn_case(seed)
+        kw = dict(steps_per_dispatch=spd, slot_resident=True,
+                  auto_rebuild=True, sort_every=RESIDENT["sort_every"])
+        adv_c = make_advance(sc, "pallas", device=dev, **kw)
+        adv_h = make_advance(sc, "pallas", device="cpu", **kw)
+        a, b = start(dev, sc), start("cpu", sc)
+        n0, spawned, counters = int(b.n_active()), [], []
+        for k, burst in enumerate(bursts):
+            a, k_c = spawn(a, sc, **burst)
+            b, k_h = spawn(b, sc, **burst)
+            ra, rb = adv_c(a), adv_h(b)
+            a, b = ra[0], rb[0]
+            got = [k_c, *(int(n) for n in ra[1:])]
+            want = [k_h, *(int(n) for n in rb[1:])]
+            if got != want:
+                _parted(seed, "live spawn", k, got, want)
+            check(got == want and k_h > 0 and want[1] == 0,
+                  f"spawned counts, viol 0 and counters of the card equal "
+                  f"the CPU's at fuzz seed {seed}, burst {k}")
+            spawned.append(k_h)
+            counters.append(want[1:])
+            check(int(a.n_active()) == int(b.n_active()) == n0 + sum(spawned),
+                  f"n_active grows by the spawned counts at fuzz seed {seed}")
+        out["live spawn"] = {
+            "max_abs_dx": fuzz_hold(seed, "live spawn", sc, a, b,
+                                    init(sc, device="cpu").x),
+            "spawned": spawned, "viol_healed_rebuilds": counters,
+            "n_active": int(b.n_active())}
+    return out
+
+
+# the branches the fuzz phase must show launched, those no preset reaches
+# among them (K1's ideal EOS in 3-D, its Tait in 2-D, S2's Euler and clamp
+# walls in 3-D, K3/K4 in 2-D): kernel -> substrings of its branch keys
+FUZZ_BRANCHES = {
+    "slot_density": ("2d/ideal", "2d/tait", "3d/ideal", "3d/tait"),
+    "slot_force": ("2d/ideal", "2d/tait", "3d/ideal", "3d/tait"),
+    "packed_density": ("2d/",),
+    "packed_force": ("2d/",),
+    "slot_pre": ("2d/leapfrog", "2d/euler", "3d/leapfrog", "3d/euler"),
+    "slot_post": ("2d/leapfrog", "2d/euler", "3d/leapfrog", "3d/euler",
+                  "3d/euler/clamp", "3d/leapfrog/penalty"),
+}
+
+
+def phase_fuzz(dev) -> dict:
+    """The reference's seeded fuzz on the card (tests/torch_fuzz_scenes.py):
+    every seed of tests/test_torch_fuzz*.py, the reference's and the
+    port's own, on the card and on the CPU from the same init — one
+    evaluation (`fuzz_eval`), then the trajectories (`fuzz_runs`).  Every
+    kernel's launches by branch, for the evaluations and for the
+    trajectories; the branches of FUZZ_BRANCHES must have run."""
+    import collections
+
+    fz = fuzz_scenes()
+    seeds = fz.REFERENCE_SEEDS + fz.PORT_SEEDS
+    t0 = time.perf_counter()
+    evals, runs = collections.Counter(), collections.Counter()
+    res = {}
+    for seed in seeds:
+        scene = fz.scene_for(seed)
+        with branch_launches(evals):
+            ev = fuzz_eval(seed, scene, dev)
+        reset_counts()
+        with branch_launches(runs), contextlib.redirect_stderr(io.StringIO()):
+            traj = fuzz_runs(fz, seed, dev)
+        launches = read_counts(f"fuzz seed {seed}")
+        p = scene.params
+        res[seed] = {"scene": {"dim": p.dim, "eos": p.eos,
+                               "integrator": p.integrator,
+                               "kernel_norm": p.kernel_norm,
+                               "boundary_mode": p.boundary_mode,
+                               "pressure_floor": p.pressure_floor,
+                               "force_fields": len(scene.force_fields),
+                               "h": p.h},
+                     "eval": ev, "runs": traj,
+                     "launches": {k: n for k, n in launches.items() if n}}
+        emit({"phase": "fuzz", "seed": seed, **res[seed]})
+    both = evals + runs
+    missing = [f"{k} {b}" for k, subs in FUZZ_BRANCHES.items() for b in subs
+               if not any(key.startswith(k + " ") and b in key
+                          for key in both)]
+    emit({"phase": "fuzz", "seeds": list(seeds),
+          "seconds": time.perf_counter() - t0,
+          "launches_by_branch": {"eval": dict(sorted(evals.items())),
+                                 "paths": dict(sorted(runs.items()))},
+          "branches_missing": missing})
+    check(not missing, f"the fuzz phase launched every branch: {missing}")
+    return {"eval": evals, "paths": runs}
+
+
+GPU_TESTS = ["tests/test_torch_gpu.py", "tests/test_torch_slot_pass.py"]
+
+
+@contextlib.contextmanager
+def phase_gpu_tests(out: dict):
+    """The `gpu` cases of GPU_TESTS in a pytest subprocess that runs while
+    the block inside runs (`--noconftest`: tests/conftest.py imports JAX):
+    every collected case must pass, and none may skip — a skip on a card
+    hides a failure.  Its counts go into `out`."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = Path(tmp) / "gpu.xml"
+        log = open(Path(tmp) / "gpu.log", "w+")
+        cmd = [sys.executable, "-m", "pytest", *GPU_TESTS, "-m", "gpu",
+               "--noconftest", "-q", "-p", "no:cacheprovider",
+               f"--junitxml={xml}"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            yield
+            rc = proc.wait(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        secs = time.perf_counter() - t0
+        log.seek(0)
+        tail = log.read()[-600:]
+        log.close()
+        suite = ET.parse(xml).getroot()
+        suite = suite if suite.tag == "testsuite" else suite[0]
+        n = {k: int(suite.get(k, 0)) for k in ("tests", "failures", "errors",
+                                              "skipped")}
+    passed = n["tests"] - n["failures"] - n["errors"] - n["skipped"]
+    out.update(collected=n["tests"], passed=passed, failed=n["failures"],
+               errors=n["errors"], skipped=n["skipped"], rc=rc,
+               seconds=secs)
+    emit({"phase": "gpu_tests", **out,
+          "seconds_note": "beside the fuzz phase", "tail": tail})
+    check(rc == 0 and n["tests"] > 0 and passed == n["tests"],
+          f"every gpu test case passed, none skipped: {out}")
+
+
+# frames of the cli_paths commands, and their scalars' agreement
+CLI_PATHS_FRAMES = {"fountain2d": (3, 100), "scene": (4, 8),
+                    "tutorial2d": (3, 100), "dam3d_100k": (2, 20)}
+CLI_REL = 1e-3
+MOMENTA = ("momentum_x", "momentum_y", "momentum_z")
+
+
+def metrics_of(out: Path) -> list:
+    return [json.loads(ln) for ln in
+            (out / "metrics.jsonl").read_text().splitlines()]
+
+
+def same_metrics(a: list, b: list, where: str, exact: bool = False,
+                 keys=("n_active", "healed_blocks", "repaired_blocks",
+                       "advance_mode")) -> dict:
+    """metrics.jsonl lines `a` against `b`, frame by frame: the step and
+    `keys` equal, no cap dropped, and the scalars within CLI_REL of the
+    larger (a momentum component: of the largest component), or equal
+    when `exact`; → the largest relative difference."""
+    from sph_tpu_torch.diagnostics import SCALARS
+
+    check(len(a) == len(b) > 0, f"as many frames at {where}")
+    worst = 0.0
+    for ra, rb in zip(a, b):
+        check(ra["step"] == rb["step"]
+              and all(ra.get(k) == rb.get(k) for k in keys)
+              and ra.get("cap_dropped", 0) == rb.get("cap_dropped", 0) == 0,
+              f"step, {', '.join(keys)} and cap_dropped 0 equal at {where}, "
+              f"step {rb['step']}")
+        mom = max(abs(r[k]) for r in (ra, rb) for k in MOMENTA)
+        for k in SCALARS:
+            d = abs(ra[k] - rb[k])
+            scale = mom if k in MOMENTA else max(abs(ra[k]), abs(rb[k]))
+            rel = d / scale if scale else d
+            worst = max(worst, rel)
+            check(rel == 0 if exact else rel <= CLI_REL,
+                  f"{k} within {CLI_REL} relative at {where}, step "
+                  f"{rb['step']}: {ra[k]} vs {rb[k]}")
+    return {"frames": len(a), "max_rel": worst}
+
+
+def render_bytes(state, scene, mode: str, tmp: Path) -> bytes:
+    from sph_tpu_torch import render
+
+    path = tmp / f"{mode}_{state.x.device.type}.png"
+    render.save_frame(state, scene, str(path), width=320, height=240,
+                      mode=mode)
+    return path.read_bytes()
+
+
+def phase_cli_paths(dev) -> dict:
+    """The command line's paths no other phase drives (ROADMAP Queue 1
+    item 19), each with --device cuda and its --device cpu twin side by
+    side, their metrics.jsonl held frame by frame (`same_metrics`):
+    fountain2d on --method auto (its packed verdict against packed_fits;
+    the card's run in this process, its launches by branch read);
+    fountain2d --interact on the resident path (a spawn, a force field, a
+    malformed spawn that is ignored, a second spawn: n_active grows by
+    exactly the spawned counts over the plain run); a fuzz scene saved
+    with scene_to_json, run with --checkpoint-every 1, then --resume from
+    its second checkpoint (the resumed lines equal the uninterrupted run's
+    from there on); tutorial2d --repair-k 0 --strict-audit; --render with
+    --mode speed, rho and depth (PNGs that decode at 320x240; the card's
+    render of a state byte for byte the CPU's of the same state); and
+    under torchrun dam3d_100k --shards 2 --shard-axis 2 and --shards 2x2
+    --shard-axis 2 --shard-axis2 0 on cuda:0, held to the single-device
+    card run of the same command."""
+    import collections
+    import os
+    import tempfile
+    import threading
+
+    from sph_tpu_torch import cli, init, make_audited_advance, packed_fits
+    from sph_tpu_torch import preset, scene_to_json
+    from sph_tpu_torch.state import State
+
+    fz = fuzz_scenes()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        scene3 = fz.scene_for(fz.PORT_SEEDS[1])
+        check(scene3.params.dim == 3, "the saved fuzz scene is 3-D")
+        sjson = tmp / "scene.json"
+        sjson.write_text(scene_to_json(scene3))
+        f2d = preset("fountain2d")
+        cx = f2d.hi[0] / 2
+        interact = tmp / "commands.jsonl"
+        interact.write_text("\n".join(json.dumps(c) for c in (
+            {"spawn": {"pos": [cx - 150.0, 400.0], "n": 48,
+                       "velocity": [0.0, -50.0]}},
+            {"force_field": {"pos": [cx, 100.0], "strength": 4e4,
+                             "radius": 80.0, "duration_steps": 150}},
+            {"spawn": {"n": 5}},
+            {"spawn": {"pos": [cx + 150.0, 400.0], "n": 32}},
+        )) + "\n")
+        wh = ["--width", "320", "--height", "240"]
+
+        def frames(name):
+            f, s = CLI_PATHS_FRAMES[name]
+            return ["--frames", str(f), "--steps-per-frame", str(s)]
+
+        def twin(key, argv):
+            return [(f"{key} {d}", argv + ["--device", d,
+                                           "--out", str(tmp / f"{key}_{d}")])
+                    for d in ("cuda", "cpu")]
+
+        runs = [
+            *twin("interact", ["run", "fountain2d", "--sort-every", "4",
+                               "--resident", "--interact", str(interact),
+                               "--render", "--mode", "rho", *wh,
+                               *frames("fountain2d"), "--quiet"]),
+            *twin("scene", ["run", str(sjson), "--checkpoint-every", "1",
+                            "--render", "--mode", "depth", *wh,
+                            *frames("scene"), "--quiet"]),
+            *twin("strict", ["run", "tutorial2d", "--repair-k", "0",
+                             "--strict-audit", "--sort-every", "4",
+                             "--resident", *frames("tutorial2d"),
+                             "--quiet"]),
+            ("single cuda:0", ["run", "dam3d_100k", *frames("dam3d_100k"),
+                               "--device", "cuda:0", "--out",
+                               str(tmp / "single"), "--quiet"]),
+        ]
+        auto = ["run", "fountain2d", "--render", "--mode", "speed", *wh,
+                *frames("fountain2d"), "--quiet"]
+        runs.append(("auto cpu", auto + ["--device", "cpu", "--out",
+                                         str(tmp / "auto_cpu")]))
+        shards = {
+            "slabs": (2, ["run", "dam3d_100k", "--shards", "2",
+                          "--shard-axis", "2"]),
+            "pencils": (4, ["run", "dam3d_100k", "--shards", "2x2",
+                            "--shard-axis", "2", "--shard-axis2", "0"]),
+        }
+        cpu_env = {**os.environ, "OMP_NUM_THREADS": "2"}
+        cmds = [(cli_cmd(a), cpu_env if k.endswith("cpu") else None)
+                for k, a in runs]
+        for key, (n, argv) in shards.items():
+            runs.append((key, argv))
+            cmds.append((torchrun_cmd(n, argv + [
+                *frames("dam3d_100k"), "--device", "cuda:0", "--out",
+                str(tmp / key), "--quiet"]), None))
+        box = {}
+
+        def beside():
+            try:
+                box["results"] = side_by_side(cmds, timeout=600)
+            except BaseException as e:      # raised again below
+                box["error"] = e
+
+        worker = threading.Thread(target=beside)
+        worker.start()
+        # the card's fountain2d run in this process, its launches read
+        tally = collections.Counter()
+        reset_counts()
+        err = io.StringIO()
+        try:
+            with branch_launches(tally), contextlib.redirect_stderr(err):
+                rc = cli.main(auto + ["--device", "cuda", "--out",
+                                      str(tmp / "auto_cuda")])
+        finally:
+            worker.join()
+        if "error" in box:
+            raise box["error"]
+        results = box["results"]
+        launches = read_counts("cli_paths fountain2d")
+        check(rc == 0, "cli run fountain2d on the card exits 0")
+        errs = {"auto cuda": err.getvalue()}
+        for (key, argv), (rc, out, err_s, secs) in zip(runs, results):
+            emit({"phase": "cli_paths", "run": key, "argv": argv, "rc": rc,
+                  "seconds": secs, "seconds_note": "side by side",
+                  "stdout_tail": out[-300:], "stderr_tail": err_s[-600:]})
+            check(rc == 0, f"cli_paths {key} exits 0")
+            errs[key] = err_s
+        # the resumed runs, from each twin's second checkpoint
+        resumed = side_by_side([
+            (cli_cmd(["run", str(sjson), "--resume",
+                      str(tmp / f"scene_{d}" / "ckpt_00001.npz"),
+                      "--frames", "2", "--steps-per-frame",
+                      str(CLI_PATHS_FRAMES["scene"][1]), "--device", d,
+                      "--out", str(tmp / f"resumed_{d}"), "--quiet"]),
+             cpu_env if d == "cpu" else None) for d in ("cuda", "cpu")])
+        for d, (rc, _, err_s, secs) in zip(("cuda", "cpu"), resumed):
+            emit({"phase": "cli_paths", "run": f"resumed {d}", "rc": rc,
+                  "seconds": secs, "stderr_tail": err_s[-600:]})
+            check(rc == 0, f"cli_paths resumed {d} exits 0")
+
+        m = {k: metrics_of(tmp / k.replace(" ", "_")) for k in (
+            "auto cuda", "auto cpu", "interact cuda", "interact cpu",
+            "scene cuda", "scene cpu", "strict cuda", "strict cpu",
+            "resumed cuda", "resumed cpu")}
+        m.update({k: metrics_of(tmp / k) for k in ("single", "slabs",
+                                                    "pencils")})
+        held = {name: same_metrics(m[f"{name} cuda"], m[f"{name} cpu"],
+                                   f"cli_paths {name}, card vs CPU")
+                for name in ("auto", "interact", "scene", "strict")}
+        # the packed verdict of --method auto
+        fits = packed_fits(f2d, init(f2d, device="cpu"), 4)
+        check(m["auto cuda"][0]["advance_mode"]
+              == ("packed" if fits else "slot"),
+              "fountain2d's packed auto verdict follows packed_fits")
+        # the interact file: two spawns, one malformed line ignored
+        spawned = {}
+        for d in ("cuda", "cpu"):
+            e = errs[f"interact {d}"]
+            spawned[d] = [int(w) for w in re.findall(
+                r"interact: spawned (\d+) particles", e)]
+            check(len(spawned[d]) == 2 and "bad spawn command ignored" in e
+                  and "interact: force field" in e,
+                  f"interact {d}: two spawns, a force field, the malformed "
+                  f"spawn ignored")
+            for ra, ri in zip(m[f"auto {d}"], m[f"interact {d}"]):
+                check(ri["n_active"] - ra["n_active"] == sum(spawned[d]),
+                      f"interact {d}: n_active grows by exactly the "
+                      f"spawned counts, step {ri['step']}")
+        check(spawned["cuda"] == spawned["cpu"],
+              "the card and the CPU spawn the same counts")
+        # the resumed lines are the uninterrupted run's from frame 2 on;
+        # the counters restart with the resumed run's advance
+        for d in ("cuda", "cpu"):
+            whole, res = m[f"scene {d}"], m[f"resumed {d}"]
+            base = whole[1]
+            shifted = [{**r, **{k: r[k] - base[k] for k in (
+                "healed_blocks", "repaired_blocks")}} for r in whole[2:]]
+            held[f"resume {d}"] = same_metrics(
+                res, shifted, f"cli_paths resume {d}", exact=True)
+        for name in ("slabs", "pencils"):
+            held[name] = same_metrics(
+                m[name], m["single"], f"cli_paths {name} vs one device",
+                keys=("n_active",))
+        check(all(r.get("cap_dropped", 0) == 0 for r in m["single"]),
+              "no cap dropped on the single-device dam3d_100k run")
+        # PNGs at the requested size
+        pngs = {}
+        for key, mode in (("auto", "speed"), ("interact", "rho"),
+                          ("scene", "depth")):
+            for d in ("cuda", "cpu"):
+                files = sorted((tmp / f"{key}_{d}").glob("frame_*.png"))
+                sizes = {decode_png(p.read_bytes()) for p in files}
+                pngs[f"{key} {d}"] = {"mode": mode, "frames": len(files)}
+                check(len(files) == len(m[f"{key} {d}"])
+                      and sizes == {(320, 240)},
+                      f"{mode} frames of {key} {d} decode at 320x240")
+        # the card's render of a state, byte for byte the CPU's of it
+        same_render = {}
+        for sc, modes in ((f2d, ("density", "rho", "speed")),
+                          (scene3, ("density", "depth"))):
+            adv = make_audited_advance(sc, "pallas", 40, device=dev,
+                                       **RESIDENT)
+            with contextlib.redirect_stderr(io.StringIO()):
+                st = adv(init(sc, device=dev))
+            st_h = State.from_numpy(st.to_numpy(), "cpu")
+            for mode in modes:
+                a = render_bytes(st, sc, mode, tmp)
+                b = render_bytes(st_h, sc, mode, tmp)
+                same_render[f"{sc.params.dim}d {mode}"] = a == b
+                check(a == b, f"the card's {mode} render of a "
+                              f"{sc.params.dim}-D state is the CPU's, "
+                              f"byte for byte")
+    out = {"phase": "cli_paths", "seconds": time.perf_counter() - t0,
+           "held": held, "packed_fits": fits, "spawned": spawned,
+           "pngs": pngs, "same_render": same_render,
+           "fountain2d_launches_by_branch": dict(sorted(tally.items())),
+           "fountain2d_launches": {k: n for k, n in launches.items() if n}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4682,6 +5408,13 @@ def main() -> int:
     tools = phase_spill_sweep(dev, smi)
     bench = phase_bench(dev, smi)
     ladder = phase_ladder(dev, smi)
+    # this slice: the robustness net — the seeded random scenes, with the
+    # gpu test cases beside them, and the command line's paths no other
+    # phase drives
+    gpu_tests = {}
+    with phase_gpu_tests(gpu_tests):
+        fuzz = phase_fuzz(dev)
+    cli_paths = phase_cli_paths(dev)
     soak_counts = {
         **{k: r["launches"] for k, r in soaks.items()},
         "measure_spill": tools["spill"]["launches"],
@@ -4703,6 +5436,18 @@ def main() -> int:
         return {"resident4auto": {
             p: runs[f"resident:{p}"]["launches"][name]
             for p in ("dam3d_100k", "splash3d_1m", "auto", "packed")}}
+
+    def fuzz_of(name):
+        """The robustness net's launches of kernel `name`, by branch."""
+        return {"fuzz": {part: {k.split(" ", 1)[1]: n
+                                for k, n in tally.items()
+                                if k.split(" ", 1)[0] == name}
+                         for part, tally in fuzz.items()},
+                "cli_paths fountain2d": {
+                    "total": cli_paths["fountain2d_launches"].get(name, 0),
+                    **{k.split(" ", 1)[1]: n for k, n in
+                       cli_paths["fountain2d_launches_by_branch"].items()
+                       if k.split(" ", 1)[0] == name}}}
 
     kernels = []
     for name in ("slot_density", "slot_force"):
@@ -4737,6 +5482,7 @@ def main() -> int:
                          "launches": tools["sweep_launches"][name],
                          **tools["at_cap32"][name]},
             **soak_of(name),
+            **fuzz_of(name),
             "at_slab": {"lattice": "slab-local, rank 1 of 4, dam3d_100k",
                         **at_slab[name]},
             "at_slab_skinned": {
@@ -4787,6 +5533,7 @@ def main() -> int:
                            **at_reuse[name]},
             **resident(name),
             **soak_of(name),
+            **fuzz_of(name),
         })
     name = "stage_transpose"
     kernels.append({
@@ -4825,6 +5572,7 @@ def main() -> int:
                            for p in ("dam3d_100k", "splash3d_1m")},
             "ladder": {"/".join(BENCH_FLAGSHIP): ladder["launches"][name]},
             **soak_of(name),
+            **fuzz_of(name),
         })
         if name == "slot_pre":
             kernels[-1]["first_passes"] = {

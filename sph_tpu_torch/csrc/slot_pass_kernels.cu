@@ -84,7 +84,7 @@ namespace {
 constexpr int kFeat = 8;
 constexpr int kFout = 4;
 constexpr int kLane = 128;
-constexpr int kFieldF = 5;  // a force field: pos(3), fp32(1/radius), strength
+constexpr int kFieldF = 5;  // a force field: pos(3), fp32(radius), strength
 constexpr int kFieldI = 2;   // per force field: start_step, stop_step
 
 // slot_post's constants, filled once a block by the wrapper
@@ -331,7 +331,7 @@ slot_post_kernel(float* feat, float* __restrict__ acc,
           for (int c = 0; c < DIM; c++) dx[c] = __fsub_rn(__ldg(ff + c), x[c]);
           const float r = __fsqrt_rn(sum_sq<DIM>(dx));
           const float fall =
-              clamp_min(__fsub_rn(1.0f, __fmul_rn(r, __ldg(ff + 3))), 0.0f);
+              clamp_min(__fsub_rn(1.0f, __fdiv_rn(r, __ldg(ff + 3))), 0.0f);
           const float live = (step_i >= __ldg(ff_i + j * kFieldI) &&
                               step_i < __ldg(ff_i + j * kFieldI + 1))
                                  ? 1.0f : 0.0f;

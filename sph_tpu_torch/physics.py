@@ -104,7 +104,11 @@ def force_field_force(x, step, fields):
         c = device_const(tuple(ff.pos), x.dtype, x.device)
         dx = c[None, :] - x
         r = torch.sqrt(torch.sum(dx * dx, dim=-1))
-        fall = torch.clamp(1.0 - r / ff.radius, min=0.0)
+        # an fp32 0-d tensor divisor, as the reference's weakly typed
+        # constant: PyTorch's CUDA division by a Python float multiplies by
+        # fp32(1/radius) rounded from double instead, which differs
+        fall = torch.clamp(
+            1.0 - r / device_const(ff.radius, x.dtype, x.device), min=0.0)
         live = ((step >= ff.start_step) & (step < ff.stop_step)).to(x.dtype)
         dirn = dx / torch.clamp(r, min=1e-6)[:, None]
         f = f + (ff.strength * live) * fall[:, None] * dirn

@@ -359,18 +359,18 @@ class SlotBody:
         self.hi_w = (device_const(tuple(scene.hi), f32, device)
                      - params.wall_eps).reshape(1, d, 1)
         self.fields = [
-            (device_const(tuple(ff.pos), f32, device).reshape(1, d, 1), ff)
+            (device_const(tuple(ff.pos), f32, device).reshape(1, d, 1),
+             device_const(ff.radius, f32, device), ff)
             for ff in scene.force_fields
         ]
-        # the kernel's copy: per field pos(3), fp32(1 / radius) (PyTorch
-        # divides by a Python scalar on the card as a product with it),
-        # strength; start and stop steps
+        # the kernel's copy: per field pos(3), fp32(radius), strength;
+        # start and stop steps
         n_f = len(scene.force_fields)
         ff_f = np.zeros((max(n_f, 1), 5), np.float32)
         ff_i = np.zeros((max(n_f, 1), 2), np.int32)
         for j, ff in enumerate(scene.force_fields):
             ff_f[j, :d] = ff.pos
-            ff_f[j, 3] = np.float32(1.0) / np.float32(ff.radius)
+            ff_f[j, 3] = ff.radius
             ff_f[j, 4] = ff.strength
             ff_i[j] = (ff.start_step, min(ff.stop_step, 2**31 - 1))
         self.ff_f = torch.from_numpy(ff_f).to(device)
@@ -389,10 +389,10 @@ class SlotBody:
             ) * (d_hi > 0)
         if self.fields:
             step_i = step0 + i
-        for c, ff in self.fields:
+        for c, radius, ff in self.fields:
             dx = c - xs
             r = torch.sqrt(torch.sum(dx * dx, dim=1, keepdim=True))
-            fall = torch.clamp(1.0 - r / ff.radius, min=0.0)
+            fall = torch.clamp(1.0 - r / radius, min=0.0)
             live = ((step_i >= ff.start_step)
                     & (step_i < ff.stop_step)).to(xs.dtype)
             dirn = dx / torch.clamp(r, min=1e-6)

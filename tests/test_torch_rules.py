@@ -1,4 +1,5 @@
-"""Rules of the port: `sph_tpu_torch` imports neither JAX nor `sph_tpu`,
+"""Rules of the port: `sph_tpu_torch` (and tests/torch_fuzz_scenes.py,
+which `chip_smoke.py` imports) imports neither JAX nor `sph_tpu`,
 entry points (the CLI's too) never fall back to the CPU on their own, CPU
 tensors never count as kernel launches (K1-K5, P1), non-CPU tensors never
 take the plain version, options the port does not have yet raise
@@ -46,6 +47,9 @@ def test_import_pulls_in_neither_jax_nor_sph_tpu():
         "import pkgutil\n"
         "for m in pkgutil.iter_modules(sph_tpu_torch.__path__):\n"
         "    __import__('sph_tpu_torch.' + m.name)\n"
+        # the fuzz scenes, which chip_smoke.py runs on the card
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_fuzz_scenes\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'sph_tpu' or m.startswith('sph_tpu.'))\n"
         "bad += sorted(m for m in sys.modules if m == 'bench' "

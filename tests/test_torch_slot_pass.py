@@ -126,6 +126,11 @@ FIELD_ON = ForceField(pos=(150.0, 120.0, 150.0), strength=4e4, radius=90.0,
                       start_step=0, stop_step=1 << 30)
 FIELD_OFF = ForceField(pos=(150.0, 120.0, 150.0), strength=-4e4,
                        radius=90.0, start_step=500, stop_step=900)
+# a radius whose fp32 reciprocal rounded from double is not that of
+# fp32(radius): PyTorch's CUDA division by a Python float would multiply
+# by the former (fuzz seed 31's field, tests/torch_fuzz_scenes.py)
+FIELD_ODD = ForceField(pos=(60.0, 40.0, 40.0), strength=2.05e4,
+                       radius=34.458634852238134)
 
 
 def _scene(dim, leap, penalty, fields=(), bf16=False):
@@ -215,6 +220,8 @@ CASES = {
     "3d-leap-clamp-no-acc": (3, True, False, (), False, False, False, 1e-3),
     "3d-euler-penalty-bf16": (3, False, True, (), True, False, False, 1e-3),
     "3d-leap-packed": (3, True, True, (FIELD_ON,), False, True, True, 1e-3),
+    "3d-euler-clamp-field-odd-radius": (3, False, False, (FIELD_ODD,), False,
+                                        False, False, 1e-3),
 }
 
 
