@@ -1509,9 +1509,8 @@ def phase_profile_resident(name: str, scene, state, n_steps: int, dev,
     """One `n_steps`-step resident4auto dispatch (with `policy`, e.g.
     adaptive_cap=True, on top) under torch.profiler, after one warm
     dispatch: device time per step by kernel, operations per step, busy
-    share, the host fetches per block, and the blocks by first slot_pre
-    (None for a package without the counts, as profile_turns.py may
-    measure)."""
+    share, the host fetches per block, and the blocks by first
+    slot_pre."""
     from torch.profiler import ProfilerActivity, profile
 
     from sph_tpu_torch import make_audited_advance, prime, slot_pass
@@ -1546,7 +1545,7 @@ def phase_profile_resident(name: str, scene, state, n_steps: int, dev,
           "healed": adv.healed - before[0],
           "rebuilds": adv.rebuilds - before[1],
           "repaired": adv.repaired - before[2], "host_fetches": fetches,
-          "first_passes": dict(getattr(slot_pass, "BLOCKS", {})) or None,
+          "first_passes": dict(slot_pass.BLOCKS),
           "wall_ms_per_step_profiled": wall / n_steps * 1e3,
           "device_ms_per_step": busy,
           "device_busy_share": busy / (wall / n_steps * 1e3),

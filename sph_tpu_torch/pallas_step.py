@@ -55,7 +55,7 @@ import torch
 from sph_tpu_torch import packed_kernels, physics, slot_kernels, stage_kernels
 from sph_tpu_torch.neighbors import GridSpec, cell_index
 from sph_tpu_torch.params import SimParams
-from sph_tpu_torch.platform import device_const
+from sph_tpu_torch.platform import device_const, span
 from sph_tpu_torch.slot_kernels import FEAT, FOUT, LANE
 
 
@@ -231,122 +231,126 @@ def build_addr(x: torch.Tensor, active: torch.Tensor, grid: GridSpec,
                ) -> SlotAddr:
     """`ci_offset` (D ints) places a slab-local grid on the global lattice
     (`neighbors.cell_index`); `center` stays in global coordinates."""
-    n = x.shape[0]
-    dev = x.device
-    i32 = torch.int32
-    ci, flat = cell_index(x, active, grid, ci_offset)
-    in_cell = flat < grid.n_cells
-    h0 = (ci[:, 0] + 1) if sg.dim == 3 else torch.zeros(n, dtype=i32, device=dev)
-    h1 = ci[:, -2] + 1
-    code = h0 * sg.h1 + h1                     # (z, y) row code, interior
-    n_codes = sg.h0 * sg.h1
-    if sg.packed:
-        # pos = stable rank within the (z, y) row: a row's particles fill
-        # lanes 0..count-1, so per-group occupancy is a prefix.  A particle
-        # past row_lanes is not valid; the clamp only keeps its group index
-        # in range (it adds nothing to gcounts).
-        rank = cell_ranks(torch.where(in_cell, code, n_codes), n_codes + 1)
-        valid = in_cell & (rank < sg.lanes)
-        pos = rank
-        gx = torch.clamp(rank, max=sg.lanes - 1) // LANE
-    else:
-        if sg.xsub == 1:
-            sx = ci[:, -1]
+    with span("sph.build_addr"):
+        n = x.shape[0]
+        dev = x.device
+        i32 = torch.int32
+        ci, flat = cell_index(x, active, grid, ci_offset)
+        in_cell = flat < grid.n_cells
+        h0 = ((ci[:, 0] + 1) if sg.dim == 3
+              else torch.zeros(n, dtype=i32, device=dev))
+        h1 = ci[:, -2] + 1
+        code = h0 * sg.h1 + h1                     # (z, y) row code, interior
+        n_codes = sg.h0 * sg.h1
+        if sg.packed:
+            # pos = stable rank within the (z, y) row: a row's particles fill
+            # lanes 0..count-1, so per-group occupancy is a prefix.  A particle
+            # past row_lanes is not valid; the clamp only keeps its group index
+            # in range (it adds nothing to gcounts).
+            rank = cell_ranks(torch.where(in_cell, code, n_codes), n_codes + 1)
+            valid = in_cell & (rank < sg.lanes)
+            pos = rank
+            gx = torch.clamp(rank, max=sg.lanes - 1) // LANE
         else:
-            # the xsub-subdivided lattice, clamped into the full cell ci
-            # assigned (so rounding between the two floors can never split
-            # row and lane binning); divides by a device scalar, as
-            # cell_index does
-            lo_x = device_const(grid.lo[-1], x.dtype, dev)
-            cell_x = device_const(grid.cell / sg.xsub, x.dtype, dev)
-            sxf = torch.floor((x[:, -1] - lo_x) / cell_x).to(i32)
-            if ci_offset is not None:
-                sxf = sxf - int(ci_offset[-1]) * sg.xsub
-            base_sx = ci[:, -1] * sg.xsub
-            sx = torch.minimum(torch.maximum(sxf, base_sx),
-                               base_sx + (sg.xsub - 1))
-        hx = sx + sg.xc                        # one-group x halo
-        n_hrows = sg.h0 * sg.h1 * sg.h2
-        hrow = code * sg.h2 + hx
-        hrow = torch.where(in_cell, hrow, n_hrows)
-        rank = cell_ranks(hrow, n_hrows + 1)
-        valid = in_cell & (rank < sg.cap)
-        pos = hx * sg.cap + rank
-        gx = hx // sg.xc
+            if sg.xsub == 1:
+                sx = ci[:, -1]
+            else:
+                # the xsub-subdivided lattice, clamped into the full cell ci
+                # assigned (so rounding between the two floors can never split
+                # row and lane binning); divides by a device scalar, as
+                # cell_index does
+                lo_x = device_const(grid.lo[-1], x.dtype, dev)
+                cell_x = device_const(grid.cell / sg.xsub, x.dtype, dev)
+                sxf = torch.floor((x[:, -1] - lo_x) / cell_x).to(i32)
+                if ci_offset is not None:
+                    sxf = sxf - int(ci_offset[-1]) * sg.xsub
+                base_sx = ci[:, -1] * sg.xsub
+                sx = torch.minimum(torch.maximum(sxf, base_sx),
+                                   base_sx + (sg.xsub - 1))
+            hx = sx + sg.xc                        # one-group x halo
+            n_hrows = sg.h0 * sg.h1 * sg.h2
+            hrow = code * sg.h2 + hx
+            hrow = torch.where(in_cell, hrow, n_hrows)
+            rank = cell_ranks(hrow, n_hrows + 1)
+            valid = in_cell & (rank < sg.cap)
+            pos = hx * sg.cap + rank
+            gx = hx // sg.xc
 
-    row_occ = torch.zeros(n_codes + 1, dtype=i32, device=dev)
-    row_occ.index_add_(
-        0, torch.where(valid, code, n_codes).long(),
-        torch.ones(n, dtype=i32, device=dev),
-    )
-    row_occ = row_occ[:n_codes] > 0
-    usable = sg.c_rows - 1                     # row 0 is the dummy
-    n_occ = torch.clamp(torch.sum(row_occ, dtype=i32), max=usable).reshape(1)
-    # padded nonzero(row_occ, size=usable, fill_value=0): the k-th occupied
-    # code goes to slot k; codes past `usable` and unoccupied codes go to
-    # the spare dump slot `usable`, sliced off below
-    k = torch.cumsum(row_occ, 0, dtype=torch.int64) - 1
-    codes = torch.arange(n_codes, dtype=i32, device=dev)
-    row_codes = torch.zeros(usable + 1, dtype=i32, device=dev)
-    row_codes.index_put_(
-        (torch.where(row_occ & (k < usable), k, usable),), codes
-    )
-    row_codes = row_codes[:usable]
-    in_range = torch.arange(usable, dtype=i32, device=dev) < n_occ[0]
-    # row_inv: code -> compacted position (1..n_occ); 0 = dummy for
-    # unoccupied/dropped rows.  Pad entries write 0 to the spare slot
-    # n_codes so they cannot clobber a real code.
-    targets = torch.where(in_range, row_codes, n_codes).long()
-    row_inv = torch.zeros(n_codes + 1, dtype=i32, device=dev)
-    row_inv.index_put_(
-        (targets,),
-        torch.where(in_range, 1 + torch.arange(usable, dtype=i32, device=dev),
-                    0),
-    )
-    row_pos = row_inv[code.long()]             # 0 iff dropped by c_rows cap
-    ok = valid & (row_pos > 0)
-    overflow = (
-        torch.sum((~valid) & in_cell, dtype=i32)
-        + torch.sum(valid & (row_pos == 0), dtype=i32)
-    )
+        row_occ = torch.zeros(n_codes + 1, dtype=i32, device=dev)
+        row_occ.index_add_(
+            0, torch.where(valid, code, n_codes).long(),
+            torch.ones(n, dtype=i32, device=dev),
+        )
+        row_occ = row_occ[:n_codes] > 0
+        usable = sg.c_rows - 1                     # row 0 is the dummy
+        n_occ = torch.clamp(torch.sum(row_occ, dtype=i32),
+                            max=usable).reshape(1)
+        # padded nonzero(row_occ, size=usable, fill_value=0): the k-th occupied
+        # code goes to slot k; codes past `usable` and unoccupied codes go to
+        # the spare dump slot `usable`, sliced off below
+        k = torch.cumsum(row_occ, 0, dtype=torch.int64) - 1
+        codes = torch.arange(n_codes, dtype=i32, device=dev)
+        row_codes = torch.zeros(usable + 1, dtype=i32, device=dev)
+        row_codes.index_put_(
+            (torch.where(row_occ & (k < usable), k, usable),), codes
+        )
+        row_codes = row_codes[:usable]
+        in_range = torch.arange(usable, dtype=i32, device=dev) < n_occ[0]
+        # row_inv: code -> compacted position (1..n_occ); 0 = dummy for
+        # unoccupied/dropped rows.  Pad entries write 0 to the spare slot
+        # n_codes so they cannot clobber a real code.
+        targets = torch.where(in_range, row_codes, n_codes).long()
+        row_inv = torch.zeros(n_codes + 1, dtype=i32, device=dev)
+        row_inv.index_put_(
+            (targets,),
+            torch.where(in_range,
+                        1 + torch.arange(usable, dtype=i32, device=dev), 0),
+        )
+        row_pos = row_inv[code.long()]        # 0 iff dropped by c_rows cap
+        ok = valid & (row_pos > 0)
+        overflow = (
+            torch.sum((~valid) & in_cell, dtype=i32)
+            + torch.sum(valid & (row_pos == 0), dtype=i32)
+        )
 
-    gcounts = torch.zeros(sg.c_rows * sg.n_groups, dtype=i32, device=dev)
-    gcounts.index_add_(
-        0, torch.where(ok, row_pos * sg.n_groups + gx, 0).long(), ok.to(i32)
-    )
-    gcounts = gcounts.reshape(sg.c_rows, 1, sg.n_groups)
+        gcounts = torch.zeros(sg.c_rows * sg.n_groups, dtype=i32, device=dev)
+        gcounts.index_add_(
+            0, torch.where(ok, row_pos * sg.n_groups + gx, 0).long(),
+            ok.to(i32)
+        )
+        gcounts = gcounts.reshape(sg.c_rows, 1, sg.n_groups)
 
-    # Neighbor table in compacted space.  Occupied codes are interior, so
-    # code + dz·H1 + dy stays in [0, n_codes) for real rows; the dummy/pad
-    # entries use a safe interior code so the lookup stays in range.
-    safe_code = sg.h1 + 1 if sg.dim == 3 else 1
-    codes_ext = torch.cat([
-        torch.full((1,), safe_code, dtype=i32, device=dev),
-        torch.where(in_range, row_codes, safe_code),
-    ])
-    offs = device_const(tuple(dz * sg.h1 + dy for dz, dy in sg.row_offsets),
-                        i32, dev)
-    nbr_idx = torch.clamp(codes_ext[None, :] + offs[:, None], 0, n_codes)
-    nbr_pos = row_inv[nbr_idx.long()]
-    # the dummy row's own neighbors stay the dummy row
-    nbr_pos[:, 0] = 0
-    lo = device_const(grid.lo, x.dtype, dev)
-    cell = device_const(grid.cell, x.dtype, dev)
-    if ci_offset is not None:
-        ci = ci + device_const(tuple(ci_offset), i32, dev)
-        if sg.xsub > 1 and not sg.packed:
-            sx = sx + int(ci_offset[-1]) * sg.xsub
-    center = lo + (ci.to(x.dtype) + 0.5) * cell
-    if sg.xsub > 1:    # x: the slot-cell center (the lane binning)
-        cx = (device_const(grid.lo[-1], x.dtype, dev)
-              + (sx.to(x.dtype) + 0.5)
-              * device_const(grid.cell / sg.xsub, x.dtype, dev))
-        center = torch.cat([center[:, :-1], cx[:, None]], dim=1)
-    return SlotAddr(
-        pos=pos, valid=valid, row_pos=row_pos, gcounts=gcounts,
-        n_occ=n_occ, nbr_pos=nbr_pos.contiguous(), overflow=overflow,
-        row_code=codes_ext, center=center,
-    )
+        # Neighbor table in compacted space.  Occupied codes are interior, so
+        # code + dz·H1 + dy stays in [0, n_codes) for real rows; the dummy/pad
+        # entries use a safe interior code so the lookup stays in range.
+        safe_code = sg.h1 + 1 if sg.dim == 3 else 1
+        codes_ext = torch.cat([
+            torch.full((1,), safe_code, dtype=i32, device=dev),
+            torch.where(in_range, row_codes, safe_code),
+        ])
+        offs = device_const(
+            tuple(dz * sg.h1 + dy for dz, dy in sg.row_offsets), i32, dev)
+        nbr_idx = torch.clamp(codes_ext[None, :] + offs[:, None], 0, n_codes)
+        nbr_pos = row_inv[nbr_idx.long()]
+        # the dummy row's own neighbors stay the dummy row
+        nbr_pos[:, 0] = 0
+        lo = device_const(grid.lo, x.dtype, dev)
+        cell = device_const(grid.cell, x.dtype, dev)
+        if ci_offset is not None:
+            ci = ci + device_const(tuple(ci_offset), i32, dev)
+            if sg.xsub > 1 and not sg.packed:
+                sx = sx + int(ci_offset[-1]) * sg.xsub
+        center = lo + (ci.to(x.dtype) + 0.5) * cell
+        if sg.xsub > 1:    # x: the slot-cell center (the lane binning)
+            cx = (device_const(grid.lo[-1], x.dtype, dev)
+                  + (sx.to(x.dtype) + 0.5)
+                  * device_const(grid.cell / sg.xsub, x.dtype, dev))
+            center = torch.cat([center[:, :-1], cx[:, None]], dim=1)
+        return SlotAddr(
+            pos=pos, valid=valid, row_pos=row_pos, gcounts=gcounts,
+            n_occ=n_occ, nbr_pos=nbr_pos.contiguous(), overflow=overflow,
+            row_code=codes_ext, center=center,
+        )
 
 
 def _flat_slot_idx(addr: SlotAddr, sg: SlotGrid, ncols: int, dump: int):
@@ -401,17 +405,18 @@ def scatter_slots(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid,
     contiguous, one row write per particle; particles without a slot go to
     a spare dump row), then transpose it to the kernel layout with K5
     (`stage_kernels`).  Bitwise the direct scatter's result."""
-    if staged:
-        return stage_kernels.stage_transpose(
-            stage_rows(addr, rows, sg), sg.c_rows, sg.lanes)
-    size = sg.c_rows * FEAT * sg.lanes
-    flat = torch.empty(size + 1, dtype=rows.dtype, device=rows.device)
-    feat = flat[:size].view(sg.c_rows, FEAT, sg.lanes)
-    feat[:, :3] = 1e18
-    feat[:, 3:] = 0.0
-    idx = _flat_slot_idx(addr, sg, rows.shape[1], size)
-    flat.index_put_((idx.reshape(-1),), rows.reshape(-1))
-    return feat
+    with span("sph.scatter"):
+        if staged:
+            return stage_kernels.stage_transpose(
+                stage_rows(addr, rows, sg), sg.c_rows, sg.lanes)
+        size = sg.c_rows * FEAT * sg.lanes
+        flat = torch.empty(size + 1, dtype=rows.dtype, device=rows.device)
+        feat = flat[:size].view(sg.c_rows, FEAT, sg.lanes)
+        feat[:, :3] = 1e18
+        feat[:, 3:] = 0.0
+        idx = _flat_slot_idx(addr, sg, rows.shape[1], size)
+        flat.index_put_((idx.reshape(-1),), rows.reshape(-1))
+        return feat
 
 
 def pack2bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -434,19 +439,20 @@ def scatter_slots_packed(addr: SlotAddr, rows: torch.Tensor, sg: SlotGrid,
     [c_rows, ncols, lanes], empty slots filled with `bg_row` ([ncols]) —
     the packed-bf16 rebuild transport of the resident advance.  The bits
     move as int32, so a packed value is never read as a float on the way."""
-    ncols = rows.shape[1]
-    bits = rows.view(torch.int32)
-    size = sg.c_rows * ncols * sg.lanes
-    base = addr.row_pos.long() * (ncols * sg.lanes) + addr.pos.long()
-    idx = torch.where(
-        addr.ok()[:, None],
-        base[:, None] + torch.arange(ncols, device=rows.device) * sg.lanes,
-        size)
-    flat = bg_row.view(torch.int32)[:, None].expand(
-        ncols, sg.lanes).repeat(sg.c_rows, 1).reshape(-1)
-    flat = torch.cat([flat, flat.new_zeros(1)])   # the dump of the slotless
-    flat.index_put_((idx.reshape(-1),), bits.reshape(-1))
-    return flat[:size].view(torch.float32).view(sg.c_rows, ncols, sg.lanes)
+    with span("sph.scatter"):
+        ncols = rows.shape[1]
+        bits = rows.view(torch.int32)
+        size = sg.c_rows * ncols * sg.lanes
+        base = addr.row_pos.long() * (ncols * sg.lanes) + addr.pos.long()
+        idx = torch.where(
+            addr.ok()[:, None],
+            base[:, None] + torch.arange(ncols, device=rows.device) * sg.lanes,
+            size)
+        flat = bg_row.view(torch.int32)[:, None].expand(
+            ncols, sg.lanes).repeat(sg.c_rows, 1).reshape(-1)
+        flat = torch.cat([flat, flat.new_zeros(1)])  # the slotless' dump
+        flat.index_put_((idx.reshape(-1),), bits.reshape(-1))
+        return flat[:size].view(torch.float32).view(sg.c_rows, ncols, sg.lanes)
 
 
 def slot_overflow(x, active, grid: GridSpec, sg: SlotGrid, ci_offset=None):
@@ -516,18 +522,20 @@ def slot_rows_view(slot: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_rho(rp_slot, addr: SlotAddr, sg: SlotGrid, params: SimParams):
-    ok = addr.ok()
-    flat = addr.row_pos.long() * (2 * sg.lanes) + addr.pos.long()
-    rho = rp_slot.reshape(-1)[torch.where(ok, flat, 0)]
-    return torch.where(ok, rho, params.rest_density), ok
+    with span("sph.gather"):
+        ok = addr.ok()
+        flat = addr.row_pos.long() * (2 * sg.lanes) + addr.pos.long()
+        rho = rp_slot.reshape(-1)[torch.where(ok, flat, 0)]
+        return torch.where(ok, rho, params.rest_density), ok
 
 
 def _gather_f(f_slot, addr: SlotAddr, sg: SlotGrid, d: int, ok):
-    base = addr.row_pos.long() * (FOUT * sg.lanes) + addr.pos.long()
-    base = torch.where(ok, base, 0)
-    cols = torch.arange(d, device=base.device) * sg.lanes
-    f = f_slot.reshape(-1)[base[:, None] + cols[None, :]]
-    return torch.where(ok[:, None], f, 0.0)
+    with span("sph.gather"):
+        base = addr.row_pos.long() * (FOUT * sg.lanes) + addr.pos.long()
+        base = torch.where(ok, base, 0)
+        cols = torch.arange(d, device=base.device) * sg.lanes
+        f = f_slot.reshape(-1)[base[:, None] + cols[None, :]]
+        return torch.where(ok[:, None], f, 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and the program's
+profiler spans.
 
 `None` means the CUDA card.  The port never carries on silently on the
 CPU: with no card, only an explicit `device="cpu"` (what the tests pass)
@@ -8,10 +9,23 @@ runs, and then every slot kernel takes its plain PyTorch version.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import re
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks `name` on the profiler's host timeline
+    while `torch.profiler` records, where the device's kernels are on the
+    same clock; otherwise one shared no-op, after a single check.  The
+    program's spans are named `sph.*`."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @functools.lru_cache(maxsize=None)

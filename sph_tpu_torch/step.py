@@ -33,7 +33,7 @@ import torch
 
 from sph_tpu_torch import neighbors, pallas_step, physics, slot_pass
 from sph_tpu_torch.params import Scene
-from sph_tpu_torch.platform import device_const, resolve_device
+from sph_tpu_torch.platform import device_const, resolve_device, span
 from sph_tpu_torch.slot_kernels import LANE
 from sph_tpu_torch.state import State, init
 
@@ -78,9 +78,11 @@ def reset_fetches() -> None:
 def _fetch(*ts: torch.Tensor) -> list:
     """The values of the device scalars `ts`, in one host round trip."""
     FETCHES["fetches"] += 1
-    if len(ts) == 1:
-        return [ts[0].item()]
-    return torch.stack([t.reshape(()).to(torch.int64) for t in ts]).tolist()
+    with span("sph.fetch"):
+        if len(ts) == 1:
+            return [ts[0].item()]
+        return torch.stack([t.reshape(()).to(torch.int64)
+                            for t in ts]).tolist()
 
 
 def _rho_p_f(x, v, active, scene: Scene, method: str, grid=None, step=None,
@@ -506,43 +508,45 @@ def _slot_steps(sp: _SlotPhysics, c, sort_every: int, half2: float,
     bf16 = params.precision == "bf16"
     if bf16 and exchange is not None:
         raise ValueError("the slab hooks take fp32 features")
-    centers = sp.slot_centers(addr) if bf16 else None
-    if store is None:
-        blk, full, x0 = (slot_pass.SlotBlock(sg.c_rows, sg.lanes, d, bf16,
-                                             movb.device), True, None)
-    else:
-        blk, full, x0 = store.take(c)
-    tiles = None           # the kernels' walk of the occupied groups
-    if movb.is_cuda:
-        tiles = (slot_pass.occupied_tiles(addr.gcounts, addr.n_occ)
-                 if store is None else store.tiles(addr))
-    plan = slot_pass.PostPlan(sp, leap, half2, use_mem, ci_offset, faces,
-                              budget, sort_every)
-    xs, vs, acc = c["xs"], c["vs"], c["acc"]
-    jb = c["jb"]
-    for i in range(sort_every):
-        moved = bool(i) or not c.get("drifted")
-        kick = leap and moved and acc is not None
-        drift = leap and moved
-        if i == 0 or kick or drift or bf16:
-            slot_pass.slot_pre(blk, xs, vs, acc, movb, addr.gcounts,
-                               addr.n_occ, dt, kick, drift, i == 0, centers,
-                               full=full and i == 0, x0=x0 if i == 0 else None,
-                               tiles=tiles)
-        if i == 0 and x0 is not None:
-            c["x0s"] = x0
-        xs, vs, acc = blk.xs, blk.vs, blk.acc
-        if exchange is not None and moved:
-            exchange(xs, vs)
-        feat = blk.kernel_feat
-        rp = pallas_step._call_density(feat, addr, sg, params, jb)
-        if rp_hook is not None:
-            rp_hook(rp)
-        f_s = pallas_step._call_force(feat, rp, addr, sg, params, jb)
-        slot_pass.slot_post(blk, rp, f_s, c["x0s"], movb, addr, plan,
-                            c["step0"], i, i == sort_every - 1, tiles=tiles)
-    if store is not None:
-        store.done(c, blk)
+    with span("sph.block"):
+        centers = sp.slot_centers(addr) if bf16 else None
+        if store is None:
+            blk, full, x0 = (slot_pass.SlotBlock(
+                sg.c_rows, sg.lanes, d, bf16, movb.device), True, None)
+        else:
+            blk, full, x0 = store.take(c)
+        tiles = None           # the kernels' walk of the occupied groups
+        if movb.is_cuda:
+            tiles = (slot_pass.occupied_tiles(addr.gcounts, addr.n_occ)
+                     if store is None else store.tiles(addr))
+        plan = slot_pass.PostPlan(sp, leap, half2, use_mem, ci_offset,
+                                  faces, budget, sort_every)
+        xs, vs, acc = c["xs"], c["vs"], c["acc"]
+        jb = c["jb"]
+        for i in range(sort_every):
+            moved = bool(i) or not c.get("drifted")
+            kick = leap and moved and acc is not None
+            drift = leap and moved
+            if i == 0 or kick or drift or bf16:
+                slot_pass.slot_pre(blk, xs, vs, acc, movb, addr.gcounts,
+                                   addr.n_occ, dt, kick, drift, i == 0,
+                                   centers, full=full and i == 0,
+                                   x0=x0 if i == 0 else None, tiles=tiles)
+            if i == 0 and x0 is not None:
+                c["x0s"] = x0
+            xs, vs, acc = blk.xs, blk.vs, blk.acc
+            if exchange is not None and moved:
+                exchange(xs, vs)
+            feat = blk.kernel_feat
+            rp = pallas_step._call_density(feat, addr, sg, params, jb)
+            if rp_hook is not None:
+                rp_hook(rp)
+            f_s = pallas_step._call_force(feat, rp, addr, sg, params, jb)
+            slot_pass.slot_post(blk, rp, f_s, c["x0s"], movb, addr, plan,
+                                c["step0"], i, i == sort_every - 1,
+                                tiles=tiles)
+        if store is not None:
+            store.done(c, blk)
     return xs, vs, acc, rp, blk.count, None if budget is None else blk.risky
 
 
@@ -584,20 +588,23 @@ def _read_back(sp: _SlotPhysics, c, x, v, acc, rho, p, act0, movable0):
     the carry's addressing (a slab's ghosts after them are not read);
     particles without a slot keep the values passed in."""
     n, addr, d = x.shape[0], c["addr"], sp.d
-    ok = addr.ok()[:n]
-    okc = ok[:, None]
-    row = torch.where(ok, addr.row_pos[:n], 0).long()
-    pos = torch.where(ok, addr.pos[:n], 0).long()
+    with span("sph.gather"):
+        ok = addr.ok()[:n]
+        okc = ok[:, None]
+        row = torch.where(ok, addr.row_pos[:n], 0).long()
+        pos = torch.where(ok, addr.pos[:n], 0).long()
 
-    def gather(slot, ncomp):
-        return slot[row, :ncomp, pos]
+        def gather(slot, ncomp):
+            return slot[row, :ncomp, pos]
 
-    rho_p = torch.where(ok & act0, gather(c["rp"], 1)[:, 0], rho)
-    return (torch.where(okc, gather(c["xs"], d), x),
-            torch.where(okc, gather(c["vs"], d), v),
-            torch.where(okc & movable0[:, None], gather(c["acc"], d), acc),
-            rho_p,
-            torch.where(ok & act0, physics.eos_pressure(rho_p, sp.params), p))
+        rho_p = torch.where(ok & act0, gather(c["rp"], 1)[:, 0], rho)
+        return (torch.where(okc, gather(c["xs"], d), x),
+                torch.where(okc, gather(c["vs"], d), v),
+                torch.where(okc & movable0[:, None], gather(c["acc"], d),
+                            acc),
+                rho_p,
+                torch.where(ok & act0,
+                            physics.eos_pressure(rho_p, sp.params), p))
 
 
 def _materialize(sp: _SlotPhysics, c, s: State, step) -> State:
@@ -832,7 +839,8 @@ def _make_resident_auto_advance(
         return need, activated
 
     def rebuild(c):
-        return enter_slots(materialize(c))
+        with span("sph.rebuild"):
+            return enter_slots(materialize(c))
 
     if repair_k:
         plan_t, apply_t = make_repair_tools(
@@ -860,7 +868,8 @@ def _make_resident_auto_advance(
     def advance(state: State):
         _on(state, dev)
         store = slot_pass.SlotStore(sg, d, params.precision == "bf16", dev)
-        c = enter_slots(state)
+        with span("sph.rebuild"):
+            c = enter_slots(state)
         healed, rebuilds, repairs = 0, 1, 0
         need_t, act_t = need_of(c)
         (need,) = _fetch(need_t)
@@ -868,17 +877,18 @@ def _make_resident_auto_advance(
             FETCHES["blocks"] += 1
             more = b + 1 < blocks
             if need:
+                fixed = None
                 if repair_k:
-                    plan = plan_repair(c)
-                    if _fetch(plan["can"] & ~act_t)[0]:
-                        c = apply_repair(c, plan, store)
-                        repairs += 1
-                    else:
-                        c = rebuild(c)
-                        rebuilds += 1
-                else:
+                    with span("sph.repair"):
+                        plan = plan_repair(c)
+                        if _fetch(plan["can"] & ~act_t)[0]:
+                            fixed = apply_repair(c, plan, store)
+                if fixed is None:
                     c = rebuild(c)
                     rebuilds += 1
+                else:
+                    c = fixed
+                    repairs += 1
             c["step0"] = c["shadow"].step
             xs, vs, acc_s, rp, viol_blk, risky = _slot_steps(
                 sp, c, sort_every, half2, use_mem, leap,
@@ -900,15 +910,16 @@ def _make_resident_auto_advance(
             if bad:
                 # exact per-step re-run of this block from its held slot
                 # top, then fresh residency (bitwise the classic path)
-                sm = materialize(c)
-                for _ in range(sort_every):
-                    sm = exact_step(sm)
-                c = enter_slots(sm)
+                with span("sph.heal"):
+                    sm = materialize(c)
+                    for _ in range(sort_every):
+                        sm = exact_step(sm)
+                    c = enter_slots(sm)
+                    if more:
+                        need_t, act_t = need_of(c)
+                        (need,) = _fetch(need_t)
                 healed += 1
                 rebuilds += 1
-                if more:
-                    need_t, act_t = need_of(c)
-                    (need,) = _fetch(need_t)
             else:
                 c = ok_carry
         viol = torch.zeros((), dtype=torch.int32, device=state.x.device)
