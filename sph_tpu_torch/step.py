@@ -263,6 +263,9 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
     `allowed` (a band particle has ghost copies on a neighbor whose
     addressing a local repair cannot patch).
 
+    The free-lane search works on the movers' target cells only: their
+    `[repair_k, cap]` occupancy rows, never the whole slot storage.
+
     JAX's padded `nonzero(size=)` becomes a cumsum rank scattered into a
     buffer with one spare dump entry, and its dropped `.at[].set/add` writes
     go to one spare element past the end of each array, sliced off after."""
@@ -326,7 +329,9 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
 
         # free lanes AFTER evicting the movers (so a same-cell re-home can
         # reuse its own lane); the j-th mover into a cell takes its j-th
-        # free lane
+        # free lane.  Only the movers' K target cells are scanned, as
+        # [K, cap] rows gathered from the occupancy: a cell's count of
+        # free lanes depends on its own row alone
         size = sg.c_rows * sg.lanes
         occ = torch.cat([(c["xs"][:, 0, :] < 1e17).reshape(-1),
                          torch.zeros(1, dtype=torch.bool, device=dev)])
@@ -335,7 +340,6 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
                          size),),
             torch.zeros((), dtype=torch.bool, device=dev))
         occ3 = occ[:size].reshape(sg.c_rows * sg.h2, sg.cap)
-        cumfree = torch.cumsum((~occ3).to(i32), dim=1)
         cellkey = new_row * sg.h2 + hx_m
         key = torch.where(vm, cellkey, big)
         order = torch.argsort(key, stable=True)
@@ -345,7 +349,7 @@ def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
             0, order, torch.arange(repair_k, device=dev) - first)
         rowsel = torch.clamp(cellkey, 0, sg.c_rows * sg.h2 - 1).long()
         occ_row = occ3[rowsel]                                  # [K, cap]
-        cf_row = cumfree[rowsel]
+        cf_row = torch.cumsum((~occ_row).to(i32), dim=1)
         onehot = (~occ_row) & (cf_row == (rank + 1)[:, None])
         placeable = torch.any(onehot, dim=1)
         lane_in = torch.argmax(onehot.to(i32), dim=1).to(i32)

@@ -147,6 +147,195 @@ def test_repair_is_pure_readdressing():
     assert not torch.equal(c2["addr"].pos, c["addr"].pos)
 
 
+# Hand-placed carries for the plan's free-lane search on a cap-4 lattice of
+# 10-unit cells: `residents` are (cell, count) of particles that stay put,
+# `movers` (from cell, to cell) of fast particles that moved.  Cells are
+# (row, x) in 2-D and (1, row, x) in 3-D; a cell's particles take its lanes
+# in index order, residents first.
+PLAN_CAP = 4
+PLAN_CARRIES = {
+    # three movers, from two other rows and the next x cell, into a cell
+    # with one resident: they take its free lanes 1, 2, 3 in index order
+    "several_into_one": dict(
+        residents=[((2, 3), 1), ((1, 3), 1), ((3, 3), 1), ((2, 2), 1)],
+        movers=[((1, 3), (2, 3)), ((3, 3), (2, 3)), ((2, 2), (2, 3))],
+        repair_k=8, can=True),
+    # a full cell whose lane-2 particle moves inside it: its own lane is
+    # the one free lane once it is evicted
+    "same_cell_rehome": dict(
+        residents=[((2, 3), 2), ((2, 2), 1)],
+        movers=[((2, 3), (2, 3))], extra=[((2, 3), 1)],
+        repair_k=8, can=True),
+    # two full cells swap one particle each: each mover's old slot is the
+    # other's only free lane
+    "swap_full_cells": dict(
+        residents=[((2, 2), 3), ((2, 3), 3)],
+        movers=[((2, 2), (2, 3)), ((2, 3), (2, 2))],
+        repair_k=8, can=True),
+    # a mover into a full cell: no free lane, so no repair
+    "no_free_lane": dict(
+        residents=[((2, 3), 4), ((2, 2), 1)],
+        movers=[((2, 2), (2, 3))],
+        repair_k=8, can=False),
+    # more movers than repair_k: no repair
+    "over_repair_k": dict(
+        residents=[((2, 3), 1), ((1, 3), 1), ((3, 3), 1), ((2, 2), 1)],
+        movers=[((1, 3), (2, 3)), ((3, 3), (2, 3)), ((2, 2), (2, 3))],
+        repair_k=2, can=False),
+}
+
+
+def _plan_carry(dim, residents, movers, extra=(), **_):
+    """(grid, sg, carry, x0, movers' indices) of a hand-placed carry: the
+    addressing built from every particle at its cell's center (+ a small
+    offset by rank), then each mover's slot x set inside its target cell and
+    its slot v to 100 (the others' v is 0), so exactly the movers are
+    risky.  `extra` cells get particles after the movers (index order is
+    lane order)."""
+    cell = 10.0
+    shape = (6, 6) if dim == 2 else (4, 4, 6)
+    grid = tnb.GridSpec(lo=(0.0,) * dim, cell=cell, shape=shape,
+                        cap=PLAN_CAP)
+    sg = tps.slot_grid(grid)
+
+    def at(c, k):
+        c = c if dim == 2 else (1, *c)
+        return [(ci + 0.3 + 0.1 * k) * cell for ci in c]
+
+    count = {}
+
+    def place(c):
+        k = count.get(c, 0)
+        count[c] = k + 1
+        return at(c, k)
+
+    x0 = [place(c) for c, n in residents for _ in range(n)]
+    first = len(x0)
+    x0 += [place(a) for a, _ in movers]
+    x0 += [place(c) for c, n in extra for _ in range(n)]
+    x1 = [at(b, 5) for _, b in movers]
+    x0 = torch.tensor(x0, dtype=torch.float32)
+    n = x0.shape[0]
+    act = torch.ones(n, dtype=torch.bool)
+    c = port_step._scatter_residency(x0, torch.zeros_like(x0), act, act,
+                                     grid, sg, use_mem=False)
+    addr = c["addr"]
+    assert bool(addr.ok().all())
+    mv = torch.arange(first, first + len(movers))
+    row, pos = addr.row_pos[mv].long(), addr.pos[mv].long()
+    xs, vs = c["xs"].clone(), c["vs"].clone()
+    xs[row, :, pos] = torch.tensor(x1, dtype=torch.float32)
+    vs[row, :, pos] = 100.0
+    c.update(xs=xs, vs=vs)
+    return grid, sg, c, x0, mv
+
+
+def _full_storage_plan(pl, c, grid, sg, repair_k):
+    """`new_pos` and `can` of a plan by the formula that scans every cell's
+    free lanes and then gathers the movers' target cells: the yardstick of
+    the per-target-cell search."""
+    i32, i64 = torch.int32, torch.int64
+    vm, old_row, old_pos = pl["vm"], pl["old_row"], pl["old_pos"]
+    new_row, n_risky = pl["new_row"], pl["n_risky"]
+    ci_m, _ = tnb.cell_index(pl["x_m"], vm, grid)
+    hx_m = ci_m[:, -1] + sg.xc
+    size = sg.c_rows * sg.lanes
+    occ = torch.cat([(c["xs"][:, 0, :] < 1e17).reshape(-1),
+                     torch.zeros(1, dtype=torch.bool)])
+    occ.index_put_(
+        (torch.where(vm, old_row.long() * sg.lanes + old_pos.long(), size),),
+        torch.zeros((), dtype=torch.bool))
+    occ3 = occ[:size].reshape(sg.c_rows * sg.h2, sg.cap)
+    cumfree = torch.cumsum((~occ3).to(i32), dim=1)
+    cellkey = new_row * sg.h2 + hx_m
+    key = torch.where(vm, cellkey, 2**30)
+    order = torch.argsort(key, stable=True)
+    ksort = key[order]
+    first = torch.searchsorted(ksort, ksort)
+    rank = torch.empty(repair_k, dtype=i64).scatter_(
+        0, order, torch.arange(repair_k) - first)
+    rowsel = torch.clamp(cellkey, 0, sg.c_rows * sg.h2 - 1).long()
+    onehot = (~occ3[rowsel]) & (cumfree[rowsel] == (rank + 1)[:, None])
+    placeable = torch.any(onehot, dim=1)
+    lane_in = torch.argmax(onehot.to(i32), dim=1).to(i32)
+    new_pos = hx_m * sg.cap + lane_in
+    can = ((n_risky <= repair_k) & (n_risky > 0)
+           & ~torch.any(vm & ((new_row == 0) | ~placeable)))
+    return {**pl, "new_pos": new_pos, "can": can}
+
+
+@pytest.mark.parametrize("carry", sorted(PLAN_CARRIES))
+@pytest.mark.parametrize("dim", [2, 3])
+def test_repair_plan_matches_full_storage_search(dim, carry):
+    """The plan, which counts free lanes in the movers' target cells only,
+    returns bitwise the dict of the formula that counts them over the whole
+    slot storage, on carries that reach each branch of the search."""
+    spec = PLAN_CARRIES[carry]
+    repair_k = spec["repair_k"]
+    grid, sg, c, x0, mv = _plan_carry(dim, **spec)
+    act = torch.ones(x0.shape[0], dtype=torch.bool)
+    plan, _ = port_step.make_repair_tools(
+        grid, sg, dim, 1.0, 1, 1.0, repair_k, port_step._SlotPhysics.gather)
+    pl = plan(c, x0, act, act)
+    want = _full_storage_plan(pl, c, grid, sg, repair_k)
+    assert sorted(pl) == sorted(want) == [
+        "can", "n_risky", "new_pos", "new_row", "old_pos", "old_row", "pids",
+        "vm", "x_m"]
+    for k in want:
+        assert pl[k].dtype == want[k].dtype, k
+        assert torch.equal(pl[k], want[k]), k
+    # the carry reaches the branch it names
+    n_mv = len(mv)
+    assert int(pl["n_risky"]) == n_mv
+    assert bool(pl["can"]) == spec["can"]
+    taken = min(n_mv, repair_k)
+    assert torch.equal(pl["pids"][:taken], mv[:taken])
+    assert int(pl["vm"].sum()) == taken
+    lanes = (pl["new_pos"] % PLAN_CAP)[:taken].tolist()
+    if carry == "several_into_one":
+        assert lanes == [1, 2, 3]
+    elif carry == "same_cell_rehome":
+        assert torch.equal(pl["new_pos"][:1], pl["old_pos"][:1])
+        assert lanes == [2]
+    elif carry == "swap_full_cells":
+        assert lanes == [3, 3]
+        assert (pl["new_pos"][:2] // PLAN_CAP).tolist() == (
+            pl["old_pos"][:2] // PLAN_CAP).flip(0).tolist()
+    elif carry == "no_free_lane":
+        assert int(pl["new_row"][0]) > 0
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_repair_plan_scans_target_cells_only(dim, monkeypatch):
+    """No scan of the plan sees as many elements as the slot storage
+    (`c_rows · lanes`): its 2-D scan is the movers' [repair_k, cap] block."""
+    spec = PLAN_CARRIES["several_into_one"]
+    grid, sg, c, x0, _ = _plan_carry(dim, **spec)
+    act = torch.ones(x0.shape[0], dtype=torch.bool)
+    plan, _ = port_step.make_repair_tools(
+        grid, sg, dim, 1.0, 1, 1.0, spec["repair_k"],
+        port_step._SlotPhysics.gather)
+    seen = []
+    fn, meth = torch.cumsum, torch.Tensor.cumsum
+
+    def record(t, *a, **kw):
+        seen.append(tuple(t.shape))
+        return fn(t, *a, **kw)
+
+    def record_meth(self, *a, **kw):
+        seen.append(tuple(self.shape))
+        return meth(self, *a, **kw)
+
+    monkeypatch.setattr(torch, "cumsum", record)
+    monkeypatch.setattr(torch.Tensor, "cumsum", record_meth)
+    pl = plan(c, x0, act, act)
+    monkeypatch.undo()
+    assert bool(pl["can"])
+    size = sg.c_rows * sg.lanes
+    assert all(int(np.prod(s)) < size for s in seen), (seen, size)
+    assert [s for s in seen if len(s) == 2] == [(spec["repair_k"], sg.cap)]
+
+
 @pytest.mark.parametrize("name", sph_tpu.preset_names())
 def test_repair_default_capacity_gate(name):
     ref_scene, scene = sph_tpu.preset(name), port.preset(name)
