@@ -1223,10 +1223,13 @@ def make_audited_advance(
     The returned function carries `.healed`, `.repaired`, `.rebuilds`
     (cumulative blocks) and `.mode` ("resident", "perstep", "probe",
     "packed", "slot", "cap8", "cap16"), as the reference's does
-    (`.rebuilds` is the port's own, as is the cap-8 policy's `.skin`, the
-    skin of its cap-8 lattice once probed).  Its counters are host
-    integers — the port takes the per-block decisions on the host — so
-    reading them fetches nothing."""
+    (`.rebuilds` is the port's own, as are the cap-8 policy's `.skin`, the
+    skin of its cap-8 lattice once probed, `.cap8_blocks`, the blocks run
+    on that lattice, and `.switch_step`, the step at which the mode left
+    "cap8", or None).  Its counters are host integers — the port takes
+    the per-block decisions on the host — so reading them fetches nothing.
+    The cap-8 policy marks its probe (`sph.cap_probe`) and each dispatch
+    on the cap-8 lattice (`sph.cap8`) for the profiler."""
     _check_slice(method)
     auto = auto_rebuild and slot_resident and sort_every > 1
     packed_auto = (
@@ -1282,9 +1285,10 @@ def make_audited_advance(
             pick = cap8_skin(scene, st, sort_every)
             if pick is None:
                 audited.mode = wide
+                audited.switch_step = _at(st)
                 _note(f"occupancy exceeds 8 on every cap-8 candidate "
-                      f"lattice at step {_at(st)} — running the "
-                      f"cap-{base_grid.cap} fast path")
+                      f"lattice at step {audited.switch_step} — running "
+                      f"the cap-{base_grid.cap} fast path")
                 return
             if pick != skin_full:
                 _note(f"cap-8 lattice skin narrowed {skin_full:.3g} → "
@@ -1297,13 +1301,19 @@ def make_audited_advance(
 
         def audited(st: State) -> State:
             if audited.mode == "cap8" and not adv8:
-                _probe(st)
+                with span("sph.cap_probe"):
+                    _probe(st)
             if audited.mode == "cap8":
-                st2, healed = _unpack(adv8[0](st))
+                b0 = FETCHES["blocks"]
+                with span("sph.cap8"):
+                    st2, healed = _unpack(adv8[0](st))
+                audited.cap8_blocks += FETCHES["blocks"] - b0
                 audited.healed += healed
                 if healed > max(1, blocks // 8):
+                    at = _at(st)
                     audited.mode = wide
-                    _note(f"cap-8 occupancy outgrown at step {_at(st)} "
+                    audited.switch_step = at + steps_per_dispatch
+                    _note(f"cap-8 occupancy outgrown at step {at} "
                           f"({healed}/{blocks} blocks healed) — switching "
                           f"to the cap-{base_grid.cap} fast path")
                 elif healed:
@@ -1321,8 +1331,9 @@ def make_audited_advance(
             return st2
 
         audited.healed = audited.repaired = audited.rebuilds = 0
+        audited.cap8_blocks = 0
         audited.mode = "cap8"
-        audited.skin = None
+        audited.skin = audited.switch_step = None
         return audited
 
     if packed_auto:
