@@ -378,6 +378,15 @@ Phases, each printed as one JSON line:
              dam3d_100k --shards 2 --shard-axis 2 and --shards 2x2
              --shard-axis 2 --shard-axis2 0 on cuda:0 against the
              single-device card run
+ 56. repair  (run after phase 45) the minority repair's five kernels
+             (`sph_tpu_torch.repair`, csrc/repair_kernels.cu) on the
+             carries of splash3d_1m's production advance at its first
+             attempt that can repair and its first that cannot: the plan
+             kernels bitwise `plan_plain` on every key, the apply kernels
+             bitwise `apply_plain` (a second filled storage and the
+             anchors too); each kernel's device ms (torch.profiler) and
+             byte bound, the plain versions' ms and device ops, and the
+             host wall ms of a whole attempt by each
   Phase 18 also profiles pinned packed rows at emitters3d@settled.
   then the {"kernels": [...]} summary, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
@@ -395,6 +404,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib
 import io
 import itertools
 import json
@@ -465,6 +475,11 @@ REPLACES = {
                  "integration, clamp_slot and audit, fused by XLA inside "
                  "lax.scan; no pallas_call)",
     "probe_bf16": "bench/probe_vpu_bf16.py:38 (make_kernel, bfloat16)",
+    # no pallas_call: XLA fuses the repair's plan and apply in the scan
+    **{k: "sph_tpu/step.py:335-528 (make_repair_tools' plan and apply, "
+          "fused by XLA inside lax.scan; no pallas_call)" for k in (
+              "repair_particles", "repair_movers", "repair_lanes",
+              "repair_copy", "repair_patch")},
 }
 SOURCE = {
     "slot_density": "sph_tpu_torch/csrc/slot_kernels.cu",
@@ -478,6 +493,9 @@ SOURCE = {
     "slot_pre": "sph_tpu_torch/csrc/slot_pass_kernels.cu",
     "slot_post": "sph_tpu_torch/csrc/slot_pass_kernels.cu",
     "probe_bf16": "sph_tpu_torch/csrc/probe_kernels.cu",
+    **{k: "sph_tpu_torch/csrc/repair_kernels.cu" for k in (
+        "repair_particles", "repair_movers", "repair_lanes", "repair_copy",
+        "repair_patch")},
 }
 # the production default (`sph-tpu run`'s --method auto)
 RESIDENT = dict(sort_every=4, slot_resident=True)
@@ -1007,9 +1025,10 @@ def audited_advances():
 def reset_counts() -> None:
     from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
     from sph_tpu_torch import probe_vpu_bf16 as pr
-    from sph_tpu_torch import slot_pass
+    from sph_tpu_torch import repair, slot_pass
     from sph_tpu_torch import stage_kernels as st, step as step_mod
 
+    repair.reset_launches()
     sk.reset_launches()
     pk.reset_launches()
     st.reset_launches()
@@ -1023,10 +1042,10 @@ def read_counts(name: str) -> dict:
     a yardstick (`*_simple`) or a measured launch choice (`*_variant`)."""
     from sph_tpu_torch import packed_kernels as pk, slot_kernels as sk
     from sph_tpu_torch import probe_vpu_bf16 as pr
-    from sph_tpu_torch import slot_pass, stage_kernels as st
+    from sph_tpu_torch import repair, slot_pass, stage_kernels as st
 
     counts = {**sk.LAUNCHES, **pk.LAUNCHES, **st.LAUNCHES, **pr.LAUNCHES,
-              **slot_pass.LAUNCHES}
+              **slot_pass.LAUNCHES, **repair.LAUNCHES}
     check(not any(n for k, n in counts.items()
                   if "simple" in k or "variant" in k),
           f"no yardstick or variant kernel launched at {name}")
@@ -2183,6 +2202,214 @@ def phase_slot_pass(name: str, dev, grid=None, lattice: str = "sort_every=4",
     return res
 
 
+# steps of splash3d_1m's production advance searched for repair attempts
+REPAIR_SEARCH_STEPS = 1200
+REPAIR_KERNELS = ("repair_particles", "repair_movers", "repair_lanes",
+                  "repair_copy", "repair_patch")
+
+
+def repair_carries(dev, n_steps: int = REPAIR_SEARCH_STEPS) -> dict:
+    """Copies of the plan's arguments at the first attempt of splash3d_1m's
+    resident auto advance (repair_k resolving to 2048) that can repair and
+    the first that cannot, as the advance passed them, and the tools'
+    arguments: the carries the phase `repair` holds the kernels to."""
+    from sph_tpu_torch import init, preset, prime
+    from sph_tpu_torch import step as step_mod
+
+    scene = preset("splash3d_1m")
+    state = init(scene, device=dev)
+    if scene.params.integrator == "leapfrog":
+        state = prime(scene, state, "pallas", device=dev)
+    got = {}
+    real = step_mod.make_repair_tools
+
+    def tools(*args, **kw):
+        plan_t, apply_t = real(*args, **kw)
+        got["args"] = args
+
+        def plan(c, x0, act, mov):
+            out = plan_t(c, x0, act, mov)
+            key = "can" if bool(out["can"]) else "cannot"
+            if key not in got:
+                keep = {k: c[k].clone() for k in
+                        ("xs", "vs", "acc", "x0s", "rp", "movb")}
+                if c["x0s"].data_ptr() == c["xs"].data_ptr():
+                    keep["x0s"] = keep["xs"]
+                got[key] = ({**c, **keep}, x0.clone(), act.clone(),
+                            mov.clone(), int(c["shadow"].step))
+            return out
+
+        return plan, apply_t
+
+    step_mod.make_repair_tools = tools
+    try:
+        adv = step_mod.make_advance(
+            scene, "pallas", steps_per_dispatch=100, auto_rebuild=True,
+            repair_k=step_mod.default_repair_k(scene, auto=True),
+            device=dev, **RESIDENT)
+        for _ in range(n_steps // 100):
+            state = adv(state)[0]
+            if "can" in got and "cannot" in got:
+                break
+    finally:
+        step_mod.make_repair_tools = real
+    check("can" in got, "splash3d_1m made a repair attempt that can repair")
+    return got
+
+
+def repair_bound_ms(kname: str, c, x0, plan_d, cap: int,
+                    n_sets: int) -> float:
+    """The least device time of one launch of `kname` on these arrays: each
+    byte it needs read once and each it writes written once, over the HBM
+    rate (the movers' kernels work on K entries and are far below it)."""
+    addr = c["addr"]
+    n, cap_n, d = addr.pos.shape[0], x0.shape[0], x0.shape[1]
+    k = plan_d["vm"].shape[0]
+    n_ok = int(addr.ok()[:cap_n].sum())
+    n_vm = int(plan_d["vm"].sum())
+    if kname == "repair_particles":   # valid, row, lane, movable, anchor;
+        moved = cap_n * (1 + 4 + 4 + 1 + 4 * d) + n_ok * 2 * 4 * d
+    elif kname == "repair_movers":    # a mover's slot and x; its outputs
+        moved = k * (1 + 4 + 4 + 4 * d) + k * (8 + 1 + 4 * d + 3 * 4 + 3 * 4)
+    elif kname == "repair_lanes":     # the target cells' lanes, new_pos
+        moved = k * (4 * cap + 3 * 4 + 1 + 4)
+    elif kname == "repair_copy":      # pos, row_pos, gcounts, anchors
+        moved = 2 * (2 * n * 4 + addr.gcounts.numel() * 4 + cap_n * 4 * d)
+    else:                             # the movers' slots of every array
+        moved = n_vm * (2 * (n_sets * 3 * 4 * d + 4 * d + 8 + 1) + 4 * 2
+                        + 4 * d + 8)
+    return moved / PEAK_BYTES_S * 1e3
+
+
+def device_ms(fn, n: int = N_TIMED) -> tuple:
+    """(device ms a call of `fn` by repair kernel, all its device ms a
+    call, its device operations a call) from torch.profiler's records over
+    n calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ms, total, ops = {}, 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = e.device_time_total / 1e3 / n
+        total += t
+        ops += e.count
+        m = re.search(r"(repair_[a-z]+)_kernel", e.key)
+        if m:
+            ms[m.group(1)] = ms.get(m.group(1), 0.0) + t
+    return ms, total, ops / n
+
+
+def attempt_ms(plan, apply, c, x0, act, mov, also, rounds: int = 5) -> float:
+    """Host wall ms of one attempt as the advance makes it: the plan, the
+    fetch of its `can`, the apply on a fresh copy of the carry; the copy
+    is made before the clock starts."""
+    times = []
+    for _ in range(rounds):
+        c2, o2 = from_tests("torch_repair_carries").clone(c, also)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pl = plan(c2, x0, act, mov)
+        if bool(pl["can"]):
+            apply(c2, pl, [o2], anchors=x0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_repair(dev) -> dict:
+    """The minority repair's five kernels (`sph_tpu_torch.repair`) on the
+    carries of splash3d_1m's production advance at its first attempts
+    (`repair_carries`): the plan kernels bitwise `plan_plain` on every
+    key, and where the plan can repair, the apply kernels bitwise
+    `apply_plain` on copies of the carry with one other filled storage and
+    the anchors; each kernel's device ms (torch.profiler), its byte bound,
+    the plain versions' ms (CUDA events over host launches, as `ms` of the
+    kernels' calls), and the host wall ms of a whole attempt (plan, fetch,
+    apply) by each."""
+    from sph_tpu_torch import repair
+    from sph_tpu_torch.slot_pass import SlotBlock
+
+    clone = from_tests("torch_repair_carries").clone
+    cap = repair_carries(dev)
+    args = cap["args"]
+    sg, d = args[1], args[2]
+    plan, apply = repair.make_repair_tools(*args)
+    plan_p, apply_p = repair.make_repair_tools_plain(*args)
+    out = {}
+    for key in ("can", "cannot"):
+        if key not in cap:
+            continue
+        c, x0, act, mov, at_step = cap[key]
+        other = SlotBlock(sg.c_rows, sg.lanes, d, False, dev)
+        other.feat.normal_()
+        other.acc.normal_()
+        got, want = plan(c, x0, act, mov), plan_p(c, x0, act, mov)
+        torch.cuda.synchronize()
+        for k in got:
+            check(want[k].dtype == got[k].dtype and torch.equal(
+                got[k].view(torch.int32) if got[k].dtype == torch.float32
+                else got[k], want[k].view(torch.int32)
+                if want[k].dtype == torch.float32 else want[k]),
+                f"repair plan key {k} bitwise plan_plain at splash3d_1m "
+                f"step {at_step}")
+        can = bool(want["can"])
+        res = {"step": at_step, "n_risky": int(want["n_risky"]),
+               "movers": int(want["vm"].sum()), "can": can,
+               "repair_k": int(want["vm"].shape[0])}
+        res["plan_ms"] = cuda_ms(lambda: plan(c, x0, act, mov))
+        res["plan_plain_ms"] = cuda_ms(lambda: plan_p(c, x0, act, mov))
+        kms, res["plan_device_ms"], res["plan_device_ops"] = device_ms(
+            lambda: plan(c, x0, act, mov))
+        _, res["plan_plain_device_ms"], res["plan_plain_device_ops"] = \
+            device_ms(lambda: plan_p(c, x0, act, mov))
+        if can:
+            outs = []
+            for fn in (apply, apply_p):
+                c2, o2 = clone(c, other)
+                outs.append((fn(c2, want, [o2], anchors=x0), o2))
+            torch.cuda.synchronize()
+            (a, oa), (b, ob) = outs
+            for k in ("xs", "vs", "acc", "x0s", "rp", "anchors"):
+                check(bitwise(a[k], b[k]), f"repair apply {k} bitwise "
+                      f"apply_plain at splash3d_1m step {at_step}")
+            check(torch.equal(a["movb"], b["movb"])
+                  and all(torch.equal(getattr(a["addr"], k),
+                                      getattr(b["addr"], k))
+                          for k in ("pos", "row_pos", "gcounts"))
+                  and bitwise(oa.feat, ob.feat) and bitwise(oa.acc, ob.acc),
+                  f"repair apply addressing and storage bitwise apply_plain "
+                  f"at splash3d_1m step {at_step}")
+            c2, o2 = clone(c, other)
+            c3, o3 = clone(c, other)
+            res["apply_ms"] = cuda_ms(
+                lambda: apply(c2, want, [o2], anchors=x0))
+            res["apply_plain_ms"] = cuda_ms(
+                lambda: apply_p(c3, want, [o3], anchors=x0))
+            akms, res["apply_device_ms"], res["apply_device_ops"] = \
+                device_ms(lambda: apply(c2, want, [o2], anchors=x0))
+            kms.update(akms)
+            _, res["apply_plain_device_ms"], res["apply_plain_device_ops"] = \
+                device_ms(lambda: apply_p(c3, want, [o3], anchors=x0))
+        res["attempt_ms"] = attempt_ms(plan, apply, c, x0, act, mov, other)
+        res["attempt_plain_ms"] = attempt_ms(plan_p, apply_p, c, x0, act,
+                                             mov, other)
+        res["kernels"] = {
+            k: {"ms": kms[k], "bound_ms": repair_bound_ms(
+                k, c, x0, want, sg.cap, 2), "bound_by": "bytes"}
+            for k in REPAIR_KERNELS if k in kms}
+        out[key] = res
+    emit({"phase": "repair", "preset": "splash3d_1m", **out})
+    return out
+
+
 def cap8_lattice(scene, state):
     """(skin, GridSpec) of the cap-8 lattice the adaptive policy picks for
     `state`: the widest occupancy-fit skin (`step.cap8_skin`)."""
@@ -3040,7 +3267,7 @@ def soak_launches(launches: dict) -> dict:
     """The launch counts a soak reports beside the kernels' other paths."""
     return {k: launches[k] for k in ("slot_density", "slot_force", "slot_pre",
                                      "slot_post", "packed_density",
-                                     "packed_force")}
+                                     "packed_force", *REPAIR_KERNELS)}
 
 
 def in_process(fn):
@@ -3802,7 +4029,21 @@ def phase_decomp_fast(name: str, dev) -> dict:
     check(pol["modes"] == ["resident"], f"the fast path ran at {name}")
     check_slot_pass(f"decomp_fast {name}", launches, n_steps, scene,
                     pol["modes"])
+    check_repair_launches(f"decomp_fast {name}", launches, pol["repaired"])
     return out
+
+
+def check_repair_launches(where: str, launches: dict, repairs: int) -> None:
+    """The slab fast path's repairs ran the repair kernels: each plan
+    kernel once an attempt, each apply kernel once a repair (every rank
+    applies a repair the mesh consents to)."""
+    plans = {launches[k] for k in REPAIR_KERNELS[:3]}
+    applies = {launches[k] for k in REPAIR_KERNELS[3:]}
+    check(len(plans) == 1 and applies == {repairs}
+          and plans.pop() >= repairs,
+          f"the repair kernels launched once an attempt and once a repair "
+          f"({repairs}) on {where}: "
+          f"{ {k: launches[k] for k in REPAIR_KERNELS} }")
 
 
 def phase_decomp_classic(dev) -> dict:
@@ -4203,6 +4444,8 @@ def phase_decomp_ranks(dev) -> dict:
         check(dp["repaired"] >= 1 and dp["healed"] == 0,
               f"the dart is repaired mid-dispatch, no heal, on rank "
               f"{r['rank']}")
+        check_repair_launches(f"the dart's fast path on rank {r['rank']}",
+                              r["dart"]["launches"], dp["repaired"])
         check(ep["rebuilds"] - ep["healed"] > EMIT_STEPS // RANKS_FAST_SPD,
               f"a rebuild besides the dispatch tops and heals (the "
               f"emission) on rank {r['rank']}")
@@ -4522,14 +4765,18 @@ FUZZ_DISPATCH = 8
 FUZZ_X_H = 1e-3
 
 
-def fuzz_scenes():
-    """tests/torch_fuzz_scenes.py, which imports numpy and the port only."""
+def from_tests(name: str):
+    """The module `name` of tests/ (one that imports numpy and the port
+    only)."""
     tests = str(ROOT / "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    import torch_fuzz_scenes
+    return importlib.import_module(name)
 
-    return torch_fuzz_scenes
+
+def fuzz_scenes():
+    """tests/torch_fuzz_scenes.py."""
+    return from_tests("torch_fuzz_scenes")
 
 
 def _eos_branch(a) -> str:
@@ -5188,6 +5435,8 @@ def main() -> int:
     at_pass8 = {p: phase_slot_pass(p, dev, grid=cap8_grids[p],
                                    lattice="cap 8")
                 for p in ("dam3d_100k", "splash3d_1m")}
+    # the minority repair's kernels on splash3d_1m's own attempts
+    repair_res = phase_repair(dev)
 
     runs = {}
     for name in ("dam3d_100k", "splash3d_1m"):
@@ -5582,6 +5831,18 @@ def main() -> int:
                 **{f"decomp_fast {p}": fast_runs[p]["first_passes"]
                    for p in ("dam3d_100k", "splash3d_1m")},
                 "soak_1m": soaks["soak_1m"]["first_passes"]}
+    for name in REPAIR_KERNELS:
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "at_scale": {"preset": "splash3d_1m",
+                         **{k: r["kernels"].get(name)
+                            for k, r in repair_res.items()}},
+            "resident4auto": {
+                p: runs[f"resident:{p}"]["launches"][name]
+                for p in ("dam3d_100k", "splash3d_1m", "auto", "packed")},
+            "soaks": {k: c.get(name) for k, c in soak_counts.items()},
+        })
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

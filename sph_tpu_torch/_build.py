@@ -67,6 +67,16 @@ SIGNATURES = {
                       _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P),
         "slot_post_consts_bytes": (),
     },
+    "repair_kernels": {
+        "repair_plan": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _P),
+        "repair_scratch_ints": (_I, _I),
+        "repair_apply": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "repair_consts_bytes": (),
+    },
     "stage_kernels": {
         "stage_transpose": (_P, _P, _I, _I, _I, _P),
     },

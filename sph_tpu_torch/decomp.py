@@ -1038,15 +1038,18 @@ def _make_spatial_resident_auto(
                 "repair_k composes with the membership predicate only "
                 "(reactive_theta=None, rebuild_frac > 0)")
     grid, sg, slab = _fast_grid(scene, spec, skin)
-    ax = spec.axis
-    nl, g_cap = spec.cap_local, spec.cap_ghost
+    g_cap = spec.cap_ghost
     per_step = _make_spatial_local(scene, spec, "pallas")
     slots_on = _slab_slots(scene, spec, grid, sg, slab, skin, sort_every)
     _fetch = step_mod._fetch
     if repair_k:
+        # interior = outside both band selections at build (the anchors
+        # are the selection positions): no rank holds a ghost copy of the
+        # particle, so only such particles may be repaired
         plan_t, apply_t = step_mod.make_repair_tools(
             grid, sg, d, dt, sort_every, budget, repair_k,
-            step_mod._SlotPhysics.gather, ci_off=slab.ci_off)
+            step_mod._SlotPhysics.gather, ci_off=slab.ci_off, faces=slab,
+            band=band_w)
 
     def masks(sh, at_step):
         act = sh["emit"] <= at_step
@@ -1146,24 +1149,16 @@ def _make_spatial_resident_auto(
             def plan_repair(c):
                 sh = c["shadow"]
                 act0, movable0 = masks(sh, c["build_step"])
-                # interior = outside both band selections at build (the
-                # anchors are the selection positions): no rank holds a
-                # ghost copy of the particle
-                near_lo, near_hi = slab.bands(sh["x"], band_w)
-                interior = ~(near_lo | near_hi)
-                return plan_t(c, sh["x"], act0, movable0,
-                              face_fn=lambda x_now: (
-                                  slab.face_margin(x_now[:, ax]), interior))
+                return plan_t(c, sh["x"], act0, movable0)
 
             def apply_repair(c, plan):
-                c2 = apply_t(c, plan, store.filled(c))
-                store.readdress(c["addr"], c2["addr"])
                 # advance the repaired particles' plan anchors, or they
                 # stay phantom-risky against their old cells
                 sh = c["shadow"]
-                sidx = torch.where(plan["vm"], plan["pids"], nl)
-                return {**c2, "shadow": {**sh, "x": _drop_set(
-                    sh["x"], sidx, plan["x_m"])}}
+                c2 = apply_t(c, plan, store.filled(c), anchors=sh["x"])
+                store.readdress(c["addr"], c2["addr"])
+                x = c2.pop("anchors")
+                return {**c2, "shadow": {**sh, "x": x}}
 
         sh0 = dict(x=loc.x, v=loc.v, acc=loc.acc, rho=loc.rho, p=loc.p,
                    kind=loc.kind, emit=loc.emit_step)

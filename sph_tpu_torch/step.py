@@ -24,7 +24,6 @@ path, and `run(shards=(n1, n2))` pencils across n1·n2 ranks, per step.
 
 from __future__ import annotations
 
-import dataclasses
 import sys
 from typing import Callable
 
@@ -34,7 +33,7 @@ import torch
 from sph_tpu_torch import neighbors, pallas_step, physics, slot_pass
 from sph_tpu_torch.params import Scene
 from sph_tpu_torch.platform import device_const, resolve_device, span
-from sph_tpu_torch.slot_kernels import LANE
+from sph_tpu_torch.repair import make_repair_tools
 from sph_tpu_torch.state import State, init
 
 def _check_slice(method: str) -> None:
@@ -247,200 +246,6 @@ def default_skin(scene: Scene, sort_every: int) -> float:
             if skin <= 0.5 * h and occ <= 12.8:
                 return skin
     return base
-
-
-def make_repair_tools(grid, sg, d, dt, sort_every, budget, repair_k, gather,
-                      ci_off=None):
-    """(plan, apply) for MINORITY SLOT REPAIR (see
-    `_make_resident_auto_advance`).  Planned in particle space: `x0_p` holds
-    every particle's build anchor (the shadow's x, which the caller advances
-    for repaired particles), `c["addr"]` its slot (its first `len(x0_p)`
-    entries: a slab's addressing also holds its ghosts).  The risky test is
-    the particle-space mirror of `slot_pass.membership_risky`, 1.2× projection
-    included.  `ci_off` is a slab-local lattice's index shift;
-    `face_fn(x_now) -> (face_margin, allowed)` lets a slab fold its face
-    distance into the margin and veto the repair of any particle outside
-    `allowed` (a band particle has ghost copies on a neighbor whose
-    addressing a local repair cannot patch).
-
-    The free-lane search works on the movers' target cells only: their
-    `[repair_k, cap]` occupancy rows, never the whole slot storage.
-
-    JAX's padded `nonzero(size=)` becomes a cumsum rank scattered into a
-    buffer with one spare dump entry, and its dropped `.at[].set/add` writes
-    go to one spare element past the end of each array, sliced off after."""
-    n_codes = sg.h0 * sg.h1
-    usable_rows = sg.c_rows - 1
-    big = 2**30
-    i32, i64 = torch.int32, torch.int64
-
-    def plan(c, x0_p, act0, movable0, face_fn=None):
-        addr = c["addr"]
-        dev = x0_p.device
-        cap_n = x0_p.shape[0]
-        ok = addr.ok()[:cap_n]
-        x_now = gather(c["xs"], d, addr)[:cap_n]
-        v_now = gather(c["vs"], d, addr)[:cap_n]
-        speed_p = torch.sqrt(torch.sum(v_now * v_now, dim=1))
-        move_p = (1.2 * dt * sort_every) * speed_p
-        dd = x_now - x0_p
-        drift_p = torch.sqrt(torch.sum(dd * dd, dim=1))
-        ci0, _ = neighbors.cell_index(x0_p, act0, grid, ci_off)
-        if ci_off is not None:
-            ci0 = ci0 + device_const(tuple(ci_off), i32, dev)  # global bins
-        lo = device_const(grid.lo, x0_p.dtype, dev)
-        lo_c = lo[None, :] + ci0.to(x0_p.dtype) * grid.cell
-        margin_p = torch.amin(
-            torch.minimum(x_now - lo_c, lo_c + grid.cell - x_now), dim=1)
-        allowed = None
-        if face_fn is not None:
-            face_m, allowed = face_fn(x_now)
-            margin_p = torch.minimum(margin_p, face_m)
-        risky = (movable0 & ok & (margin_p < move_p)
-                 & (drift_p + move_p > budget))
-        n_risky = torch.sum(risky, dtype=i32)
-        # nonzero(risky, size=repair_k, fill_value=cap_n)
-        k = torch.cumsum(risky, 0) - 1
-        pids = torch.full((repair_k + 1,), cap_n, dtype=i64, device=dev)
-        pids.index_put_((torch.where(risky & (k < repair_k), k, repair_k),),
-                        torch.arange(cap_n, device=dev))
-        pids = pids[:repair_k]
-        vm = pids < cap_n
-        pid_s = torch.clamp(pids, max=cap_n - 1)
-        x_m = x_now[pid_s]
-        old_row = addr.row_pos[pid_s]
-        old_pos = addr.pos[pid_s]
-
-        # target cell of each mover = the bin of its CURRENT position
-        ci_m, _ = neighbors.cell_index(x_m, vm, grid, ci_off)
-        if d == 3:
-            code_m = (ci_m[:, 0] + 1) * sg.h1 + (ci_m[:, 1] + 1)
-        else:
-            code_m = ci_m[:, 0] + 1
-        hx_m = ci_m[:, -1] + sg.xc
-
-        # code → compacted row (the build's row_inv, rebuilt from addr)
-        iu = torch.arange(usable_rows, dtype=i32, device=dev)
-        in_range = iu < addr.n_occ[0]
-        targets = torch.where(in_range, addr.row_code[1:], n_codes).long()
-        row_inv = torch.zeros(n_codes + 1, dtype=i32, device=dev)
-        row_inv.index_put_((targets,), torch.where(in_range, 1 + iu, 0))
-        new_row = row_inv[torch.clamp(code_m, 0, n_codes).long()]
-
-        # free lanes AFTER evicting the movers (so a same-cell re-home can
-        # reuse its own lane); the j-th mover into a cell takes its j-th
-        # free lane.  Only the movers' K target cells are scanned, as
-        # [K, cap] rows gathered from the occupancy: a cell's count of
-        # free lanes depends on its own row alone
-        size = sg.c_rows * sg.lanes
-        occ = torch.cat([(c["xs"][:, 0, :] < 1e17).reshape(-1),
-                         torch.zeros(1, dtype=torch.bool, device=dev)])
-        occ.index_put_(
-            (torch.where(vm, old_row.long() * sg.lanes + old_pos.long(),
-                         size),),
-            torch.zeros((), dtype=torch.bool, device=dev))
-        occ3 = occ[:size].reshape(sg.c_rows * sg.h2, sg.cap)
-        cellkey = new_row * sg.h2 + hx_m
-        key = torch.where(vm, cellkey, big)
-        order = torch.argsort(key, stable=True)
-        ksort = key[order]
-        first = torch.searchsorted(ksort, ksort)
-        rank = torch.empty(repair_k, dtype=i64, device=dev).scatter_(
-            0, order, torch.arange(repair_k, device=dev) - first)
-        rowsel = torch.clamp(cellkey, 0, sg.c_rows * sg.h2 - 1).long()
-        occ_row = occ3[rowsel]                                  # [K, cap]
-        cf_row = torch.cumsum((~occ_row).to(i32), dim=1)
-        onehot = (~occ_row) & (cf_row == (rank + 1)[:, None])
-        placeable = torch.any(onehot, dim=1)
-        lane_in = torch.argmax(onehot.to(i32), dim=1).to(i32)
-        new_pos = hx_m * sg.cap + lane_in
-
-        can = ((n_risky <= repair_k) & (n_risky > 0)
-               & ~torch.any(vm & ((new_row == 0) | ~placeable)))
-        if allowed is not None:
-            can = can & ~torch.any(risky & ~allowed)
-        return dict(can=can, n_risky=n_risky, pids=pids, vm=vm, x_m=x_m,
-                    old_row=old_row, old_pos=old_pos,
-                    new_row=new_row, new_pos=new_pos)
-
-    def apply(c, plan_d, also=()):
-        """Patch the carry's six slot arrays IN PLACE and return it with
-        the new addr (pure re-addressing: the particle state this carry
-        materializes is bitwise unchanged), and the x, v and acc of each
-        `slot_pass.SlotBlock` in `also` at the same slots with the same
-        values (the other storage filled for this addressing, see
-        `slot_pass.SlotStore`).  Does not touch the caller's shadow: the
-        caller advances shadow.x to x_m at the repaired pids, or they stay
-        phantom-risky against their old anchors."""
-        addr = c["addr"]
-        dev = addr.pos.device
-        vm = plan_d["vm"]
-        zero_i = torch.zeros_like(plan_d["old_row"]).long()
-        old_row, old_pos, new_row, new_pos = (
-            torch.where(vm, plan_d[k].long(), zero_i)
-            for k in ("old_row", "old_pos", "new_row", "new_pos"))
-
-        def take(arr):
-            """[ncols, K] values of the movers' old slots."""
-            return arr[old_row, :, old_pos].T
-
-        def put(arr, row, pos, vals):
-            """arr[row, :, pos] = vals [ncols, K] for the movers, in place;
-            the others write the dummy slot (row 0, lane 0) its own
-            value."""
-            ncols = arr.shape[1]
-            keep = torch.where(vm[None, :], vals, arr[0, :, 0][:, None])
-            cols = torch.arange(ncols, device=dev)[:, None]
-            arr.index_put_((row[None, :], cols, pos[None, :]), keep)
-
-        def move(arr, new_vals, old_vals):
-            """Per-axis slot move: sentinel the old slots FIRST so a
-            same-cell re-home landing on its own lane keeps the value."""
-            put(arr, old_row, old_pos, old_vals)
-            put(arr, new_row, new_pos, new_vals)
-
-        x_cols = plan_d["x_m"].T
-        far = torch.full_like(x_cols, 1e18)
-        zero = torch.zeros_like(x_cols)
-        rp_cols = take(c["rp"])
-        v_cols, a_cols = take(c["vs"]), take(c["acc"])
-        for xs, vs, acc in [(c["xs"], c["vs"], c["acc"])] + [
-                (h.xs, h.vs, h.acc) for h in also]:
-            move(xs, x_cols, far)
-            move(vs, v_cols, zero)
-            move(acc, a_cols, zero)
-        move(c["x0s"], x_cols, far)
-        move(c["rp"], rp_cols, torch.zeros_like(rp_cols))
-        move(c["movb"], torch.ones_like(vm)[None, :],
-             torch.zeros_like(vm)[None, :])
-
-        n_g = addr.gcounts.numel()
-        gfl = torch.cat([addr.gcounts.reshape(-1),
-                         addr.gcounts.new_zeros(1)])
-        ones = torch.ones_like(old_row, dtype=i32)
-        gfl.index_put_(
-            (torch.where(vm, old_row * sg.n_groups + old_pos // LANE, n_g),),
-            -ones, accumulate=True)
-        gfl.index_put_(
-            (torch.where(vm, new_row * sg.n_groups + new_pos // LANE, n_g),),
-            ones, accumulate=True)
-        n = addr.pos.shape[0]
-        sidx = torch.where(vm, plan_d["pids"], n)
-
-        def patch(field, vals):
-            ext = torch.cat([field, field.new_zeros(1)])
-            ext.index_put_((sidx,), vals.to(field.dtype))
-            return ext[:n]
-
-        addr2 = dataclasses.replace(
-            addr,
-            pos=patch(addr.pos, plan_d["new_pos"]),
-            row_pos=patch(addr.row_pos, plan_d["new_row"]),
-            gcounts=gfl[:n_g].reshape(addr.gcounts.shape),
-        )
-        return {**c, "addr": addr2}
-
-    return plan, apply
 
 
 class _SlotPhysics(slot_pass.SlotBody):
@@ -856,18 +661,15 @@ def _make_resident_auto_advance(
             return plan_t(c, s.x, act0, act0 & (s.kind == 0))
 
         def apply_repair(c, plan, store):
-            c2 = apply_t(c, plan, store.filled(c))
-            store.readdress(c["addr"], c2["addr"])
             # advance the repaired particles' plan anchors (shadow.x is x0
             # in plan_repair), else they stay phantom-risky against their
             # OLD cell; materialize and heal read shadow.x only for
             # non-slotted or pre-live particles
             sh = c["shadow"]
-            n = sh.x.shape[0]
-            sidx = torch.where(plan["vm"], plan["pids"], n)
-            x_ext = torch.cat([sh.x, sh.x.new_zeros((1, d))])
-            x_ext.index_put_((sidx,), plan["x_m"])
-            return {**c2, "shadow": sh.replace(x=x_ext[:n])}
+            c2 = apply_t(c, plan, store.filled(c), anchors=sh.x)
+            store.readdress(c["addr"], c2["addr"])
+            x = c2.pop("anchors")
+            return {**c2, "shadow": sh.replace(x=x)}
 
     def advance(state: State):
         _on(state, dev)

@@ -16,10 +16,13 @@ import pytest
 import torch
 
 import sph_tpu_torch as port
-from sph_tpu_torch import neighbors, packed_kernels, slot_kernels, slot_pass
-from sph_tpu_torch import stage_kernels
+from sph_tpu_torch import neighbors, packed_kernels, repair, slot_kernels
+from sph_tpu_torch import slot_pass, stage_kernels
+from sph_tpu_torch import step as port_step
 from sph_tpu_torch import pallas_step as ps
 from sph_tpu_torch import probe_vpu_bf16 as probe
+from torch_repair_carries import (PLACED, clone, cloud, cloud_side, lattice,
+                                  placed, slab)
 
 torch.set_num_threads(1)
 
@@ -677,3 +680,245 @@ def test_persistent_storage_on_card_bitwise_fresh(case, monkeypatch):
     for f in ("x", "v", "acc", "rho", "p"):
         assert _bitwise(getattr(a[0], f), getattr(b[0], f)), f
     assert blocks["occupied"] > 0
+
+
+REPAIR_PLAN_KEYS = ("can", "n_risky", "pids", "vm", "x_m", "old_row",
+                    "old_pos", "new_row", "new_pos")
+REPAIR_CARRIES = sorted(PLACED) + ["cloud", "cloud_over_k", "cloud_aliased"]
+# (slab, carry) of the slab cases: each hand-placed carry between interior
+# faces, the veto, and clouds between interior faces and between walls
+REPAIR_SLAB_CARRIES = ([f"interior-{n}" for n in sorted(PLACED)]
+                       + ["veto-several_into_one", "interior-cloud",
+                          "walls-cloud"])
+
+
+def _repair_carry(dim, cap, name, dev, slab_name=None):
+    """(tools' args, tools' keywords, carry, x0, act, movable, other
+    storage, can or None) of a carry of `torch_repair_carries`, on the slab
+    `slab_name`'s lattice when given."""
+    gather = port_step._SlotPhysics.gather
+    kw, ci_off = {}, None
+    if slab_name is not None:
+        cells = (cloud_side(dim, cap, 20000) if name.startswith("cloud")
+                 else lattice(dim, cap)[0].shape[dim - 2])
+        ci_off, faces, band = slab(dim, slab_name, cells)
+        kw = dict(ci_off=ci_off, faces=faces, band=band)
+    if name.startswith("cloud"):
+        grid, sg, c, x0, act, mov, other = cloud(
+            dim, cap, 20000, seed=40 + dim + cap, dev=dev,
+            alias_x0s=name == "cloud_aliased", ci_off=ci_off)
+        repair_k = 64 if name == "cloud_over_k" else 2048
+        args = (grid, sg, dim, 0.01, 4, 2.0, repair_k, gather)
+        return args, kw, c, x0, act, mov, other, None
+    grid, sg, c, x0, _, other, repair_k, can = placed(dim, cap, name, dev,
+                                                      ci_off)
+    act = torch.ones(x0.shape[0], dtype=torch.bool, device=dev)
+    return ((grid, sg, dim, 1.0, 1, 1.0, repair_k, gather), kw, c, x0, act,
+            act, other, can)
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtype and bits (a float's sign of zero and NaN payload too)."""
+    if a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _delta(before: dict) -> dict:
+    return {k: repair.LAUNCHES[k] - before[k] for k in before}
+
+
+def _repair_bitwise(args, kw, c, x0, act, mov, other) -> dict:
+    """The plan kernels against `plan_plain` on the same CUDA carry (with
+    the slab's face test where `kw` holds its faces): every key bitwise;
+    when the plan can repair, the apply kernels against `apply_plain` on
+    copies of the carry with one other filled storage and the anchors:
+    every slot array, the other storage, the new addressing and the
+    anchors bitwise.  → (the plan, the kernels' repaired carry or None)."""
+    plan, apply = repair.make_repair_tools(*args, **kw)
+    plan_p, apply_p = repair.make_repair_tools_plain(
+        *args, ci_off=kw.get("ci_off"))
+    face_fn = (repair.slab_face_fn(kw["faces"], kw["band"], x0)
+               if kw else None)
+    before = dict(repair.LAUNCHES)
+    got = plan(c, x0, act, mov)
+    want = plan_p(c, x0, act, mov, face_fn)
+    torch.cuda.synchronize()
+    assert _delta(before) == dict(repair_particles=1, repair_movers=1,
+                                  repair_lanes=1, repair_copy=0,
+                                  repair_patch=0)
+    for k in REPAIR_PLAN_KEYS:
+        assert _same_bits(got[k], want[k]), k
+    if not bool(want["can"]):
+        return want, None
+    outs = []
+    for fn in (apply, apply_p):
+        c2, o2 = clone(c, other)
+        outs.append((fn(c2, want, [o2], anchors=x0), o2))
+    torch.cuda.synchronize()
+    assert _delta(before)["repair_patch"] == 1
+    (a, oa), (b, ob) = outs
+    for k in ("xs", "vs", "acc", "x0s", "rp", "movb", "anchors"):
+        assert _same_bits(a[k], b[k]), k
+    for k in ("pos", "row_pos", "gcounts"):
+        assert _same_bits(getattr(a["addr"], k), getattr(b["addr"], k)), k
+    assert _same_bits(oa.feat, ob.feat) and _same_bits(oa.acc, ob.acc)
+    return want, a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", REPAIR_CARRIES)
+@pytest.mark.parametrize("cap", [8, 16])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_repair_kernels_bitwise_plain_version(dim, cap, name):
+    """`_repair_bitwise` on the single-device lattice.  The carries reach
+    no risky particle, fewer and more risky than repair_k, a target row 0,
+    a mover that finds no free lane, a same-cell re-home onto its own
+    lane, movers landing in lanes other movers left, and a cloud of 20,000
+    particles with ~300 movers (its x0s its xs, too)."""
+    dev = _card()
+    args, kw, c, x0, act, mov, other, can = _repair_carry(dim, cap, name,
+                                                          dev)
+    want, a = _repair_bitwise(args, kw, c, x0, act, mov, other)
+    if can is not None:
+        assert bool(want["can"]) == can
+    if name.startswith("cloud"):
+        assert bool(want["can"]) == (name != "cloud_over_k")
+    if a is not None:
+        # a re-home onto its own lane writes back the values it held
+        assert _same_bits(a["xs"], c["xs"]) == (name == "same_cell_rehome")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", REPAIR_SLAB_CARRIES)
+@pytest.mark.parametrize("cap", [8, 16])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_repair_slab_kernels_bitwise_plain_version(dim, cap, case):
+    """`_repair_bitwise` on a slab's lattice (`torch_repair_carries.SLABS`:
+    the index offset, the faces, the band): the hand-placed carries between
+    interior faces reach the branches they reach on one device, a mover
+    whose anchor lies in a band vetoes the repair, and clouds between
+    interior faces and between domain walls."""
+    dev = _card()
+    slab_name, name = case.split("-")
+    args, kw, c, x0, act, mov, other, can = _repair_carry(
+        dim, cap, name, dev, slab_name)
+    want, _ = _repair_bitwise(args, kw, c, x0, act, mov, other)
+    if can is not None:
+        assert bool(want["can"]) == (can and slab_name != "veto")
+    if slab_name == "walls":
+        assert bool(want["can"])
+
+
+def _dart(dim):
+    """A calm block and a small fast dart: a risky minority that the
+    resident auto advance repairs."""
+    if dim == 2:
+        p = port.SimParams()
+        lo = (p.wall_eps + 4,) * 2
+        return port.calibrate(port.Scene(
+            params=p, lo=(0.0, 0.0), hi=(400.0, 400.0),
+            blocks=(port.Block(lo=lo, hi=(lo[0] + 60, lo[1] + 100)),
+                    port.Block(lo=(250.0, 250.0), hi=(262.0, 262.0),
+                               velocity=(420.0, 0.0))), seed=97))
+    p = port.SimParams(dim=3, gravity=(0.0, -9.81, 0.0),
+                       kernel_norm="proper", eos="tait",
+                       integrator="leapfrog", boundary_mode="penalty",
+                       dt=4e-4)
+    return port.calibrate(port.Scene(
+        params=p, lo=(0.0,) * 3, hi=(300.0,) * 3,
+        blocks=(port.Block(lo=(20.0,) * 3, hi=(80.0, 100.0, 80.0)),
+                port.Block(lo=(200.0, 200.0, 150.0), hi=(210.0, 210.0, 160.0),
+                           velocity=(-1500.0, 0.0, 0.0))), seed=74))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+def test_repair_kernels_take_strided_anchors(dim):
+    """`_repair_bitwise` with the anchors in column order, as a state
+    loaded from a checkpoint holds its x."""
+    dev = _card()
+    args, kw, c, x0, act, mov, other, _ = _repair_carry(dim, 16, "cloud",
+                                                        dev)
+    x0_t = x0.T.contiguous().T
+    assert not x0_t.is_contiguous()
+    want, a = _repair_bitwise(args, kw, c, x0_t, act, mov, other)
+    assert a is not None and a["anchors"].is_contiguous()
+
+
+def _one_rank_world(store):
+    """A one-rank gloo group through a file store at `store` (no port)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["single", "slab"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_repair_advance_on_card_launches_and_matches_plain(dim, path,
+                                                          monkeypatch,
+                                                          tmp_path):
+    """The resident auto advance with repair_k > 0 on the card, on one
+    device and as the slab fast path of a one-rank world (`run(shards=1)`,
+    its lattice shifted by its index offset): its plan kernels launch once
+    an attempt and its apply kernels once a repair, and its state and
+    counters are bitwise a run whose tools are the plain versions, which
+    launches no repair kernel."""
+    import torch.distributed as dist
+
+    dev = _card()
+    scene = _dart(dim)
+    calls = {"plan": 0, "apply": 0}
+
+    def plain_tools(*a, faces=None, band=0.0, **kw):
+        plan_t, apply_t = repair.make_repair_tools_plain(*a, **kw)
+
+        def plan(c, x0, act, mov):
+            calls["plan"] += 1
+            return plan_t(c, x0, act, mov, None if faces is None
+                          else repair.slab_face_fn(faces, band, x0))
+
+        def apply(*aa, **kk):
+            calls["apply"] += 1
+            return apply_t(*aa, **kk)
+
+        return plan, apply
+
+    outs = []
+    for tools in (None, plain_tools):
+        if tools is not None:
+            monkeypatch.setattr(port_step, "make_repair_tools", tools)
+        repair.reset_launches()
+        st = port.init(scene, device=dev)
+        kw = dict(steps_per_dispatch=64, sort_every=4, slot_resident=True,
+                  repair_k=256, device=dev)
+        if path == "single":
+            if scene.params.integrator == "leapfrog":
+                st = port.prime(scene, st, "pallas", device=dev)
+            res = port.make_advance(scene, "pallas", auto_rebuild=True,
+                                    **kw)(st)
+            res = (res[0], [int(t) for t in res[1:]])
+        else:
+            _one_rank_world(tmp_path / f"store{len(outs)}")
+            try:
+                res = (port.run(scene, 64, method="pallas", shards=1,
+                                state=st, **kw), [])
+            finally:
+                dist.destroy_process_group()
+        torch.cuda.synchronize()
+        outs.append((res, dict(repair.LAUNCHES)))
+    ((a, ca), la), ((b, cb), lb) = outs
+    assert ca == cb
+    for f in ("x", "v", "acc", "rho", "p"):
+        assert _same_bits(getattr(a, f), getattr(b, f)), f
+    n, repairs = calls["plan"], calls["apply"]
+    assert n > 0 and repairs > 0
+    if path == "single":
+        assert repairs == ca[-1]
+    assert la == dict(repair_particles=n, repair_movers=n, repair_lanes=n,
+                      repair_copy=repairs, repair_patch=repairs)
+    assert all(v == 0 for v in lb.values())

@@ -498,10 +498,10 @@ def test_repair_patches_in_place(monkeypatch):
     def tools(*args, **kw):
         plan_t, apply_t = real(*args, **kw)
 
-        def apply(c, plan, also=()):
+        def apply(c, plan, also=(), **kw):
             keys = ("xs", "vs", "acc", "x0s", "rp", "movb")
             ptrs = {k: c[k].data_ptr() for k in keys}
-            c2 = apply_t(c, plan, also)
+            c2 = apply_t(c, plan, also, **kw)
             vm = plan["vm"]
             moved = [(plan[a][vm].long(), plan[b][vm].long())
                      for a, b in (("old_row", "old_pos"),
